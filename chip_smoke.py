@@ -1,33 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the sync engine once on an NVIDIA card.
+"""Drive the PyTorch + CUDA port once on an NVIDIA card: the sync engine,
+the LK tracker, and rendered frames -> tracks -> sync end to end.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
    the build of the CUDA kernels from rssync_tpu_torch/csrc;
-2. the main path at the engine's reference operating point (60 s at
+2. the engine's main path at its reference operating point (60 s at
    60 fps, 130 features, 200 Hz gyro, 30 windows of 60 frames, PreSync
    over +-200 ms in 2 ms steps, 4 Sync passes) through the entry points
-   a user calls: SyncProblem intake, the batched run `run_batched`,
-   and one window through pre_sync / 4 x sync / debug_pre_sync. The
+   a user calls: SyncProblem intake, `run_batched`, and one window
+   through pre_sync / 4 x sync / debug_pre_sync. The scoring kernels'
    launch counters are zeroed just before and read just after, with
-   the shapes each kernel was launched at. The recovered delays must be
-   within 0.5 ms of the truth;
-3. each kernel against its plain PyTorch version on the card, at every
-   shape the main path launched it at, on seeded inputs: max relative
-   error of the bracket (<= 2e-6), argmin agreement, kernel and plain
-   times;
-4. a small clip must give the same delays on the card as on the CPU
-   (plain versions) within 0.1 ms;
+   the shapes they were launched at. Delays within 0.5 ms of the truth;
+3. K1/K2 against their plain PyTorch version at every shape phase 2
+   launched them at, on seeded inputs: max relative error of the
+   bracket (<= 2e-6), argmin agreement, kernel and plain times (CUDA
+   events, each call after a 1 GiB overwrite: L2 cold, queued behind);
+4. a small engine problem gives the same delays on the card as on the
+   CPU (plain versions) within 0.1 ms;
 5. PreSync and Sync(4x) times through the stages `run_batched` chains
-   (median of 3 after one warm-up), peak device memory and the outer
-   Sync iterations of each pass.
+   (median of 3 after one warm-up), peak device memory, outer Sync
+   iterations per pass;
+6. the tracker at its operating point: 241 noise frames of 2704x2028
+   (stored 2816x2056, made on the card) through
+   `lk_track_video_chunked` in 16-pair chunks on the 130-point grid.
+   The strip-fetch (K3) counters are zeroed just before and read just
+   after; ms per pair is the median of 3 timed runs after that one;
+7. tracking accuracy on pixels: a textured affine scene (9 frames of
+   2704x2028, rendered on the host) tracked the same way, median and
+   p95 error against the analytic flow <= 0.03 / 0.12 px;
+8. end to end at full width: a rolling-shutter clip rendered on the
+   card (2704x2028, 60 fps, 480 frames, 11.11 ms readout, delay
+   42.3 ms, 200 Hz gyro), the pairs of its 4 syncpoint windows tracked
+   in 16-pair blocks and emitted into a SyncProblem on the card, the
+   gyro log integrated into it, then `run_batched`; every window within
+   0.5 ms of the truth;
+9. a small rendered clip (640x480, 26 frames, 30 fps) tracked and
+   synced on the card and on the CPU: tracks within 2e-3 px, delays
+   within 0.1 ms;
+10. K3 against its plain version at every shape phase 6 launched it
+    at, plus one float32 shape with frame indices: bit-equal, kernel,
+    plain and `index_select` times.
 
 The second-to-last line is a JSON object describing every kernel: its
-`ms` and `plain_ms` are those of the heaviest shape the main path
-launched it at, and `shapes` holds the measurements at every shape. The
-last line is {"ok": true, "device": {...}}.
+`ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
+shape its main path launched it at, and `shapes` holds the measurements
+at every shape. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,6 +64,22 @@ KERNEL_RTOL = 2e-6
 #: engine accuracy target (ms) and card-vs-CPU agreement (ms)
 OFFSET_TOL_MS = 0.5
 CPU_AGREE_MS = 0.1
+#: card-vs-CPU agreement of tracked positions (px): float32 sums and
+#: small matmuls reduce in another order on each device
+TRACK_AGREE_PX = 2e-3
+#: textured-scene tracking error limits (median, p95), px
+TEX_MED_PX, TEX_P95_PX = 0.03, 0.12
+#: published H100 SXM peaks: HBM bytes/s, float32 (non-tensor) ops/s
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+#: f32 operations per (row, hypothesis, valid feature) of K1/K2: the
+#: residual (3 mul + 2 add), its square, the tree sum, the max, the
+#: bf16 quantization, and 12 compare-and-count rounds of 2
+SCORE_OPS = 33
+#: the tracker's operating point (bench.py's tracking stage)
+TRACK_HW = (2028, 2704)
+GRID_STEP = 200
+CHUNK = 16
 
 
 def fail(msg: str) -> None:
@@ -56,12 +92,17 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, torch, reps: int = 5) -> float:
-    """Median of `reps` timed calls after one warm-up, CUDA events."""
+def cuda_ms(fn, torch, flush, reps: int = 5) -> float:
+    """Median of `reps` CUDA-event-timed calls after one warm-up. Before
+    each call `flush` (1 GiB on the card) is overwritten: the call finds
+    the L2 cache cold, and the device is still busy with the flush while
+    the host enqueues the start event and the call, so the events time
+    the call's device work and not the wrapper's host overhead."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -101,8 +142,15 @@ def score_inputs(np, torch, seed, B, F, N, I, dev):
     return [torch.tensor(x, device=dev) for x in (P, v, counts)]
 
 
-def compare_kernel(np, torch, S, name, shape, dev, seed):
-    """Kernel vs plain version at one (B, F, N, I) launch shape; returns
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it) at the published
+    peaks: bytes over the HBM rate, operations over the f32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_score(np, torch, S, name, shape, dev, seed, flush):
+    """K1/K2 vs plain version at one (B, F, N, I) launch shape; returns
     the measurements."""
     B, F, N, I = shape
     nP, v, counts = score_inputs(np, torch, seed, B, F, N, I, dev)
@@ -119,16 +167,68 @@ def compare_kernel(np, torch, S, name, shape, dev, seed):
     scale = torch.clamp(torch.maximum(got.abs(), want.abs()), min=1e-30)
     rel = float(((got - want).abs() / scale).max())
     agree = float((got.argmin(-1) == want.argmin(-1)).float().mean())
+    n_bytes = 4 * (nP.numel() + v.numel() + counts.numel() + got.numel())
+    n_ops = SCORE_OPS * I * int(torch.clamp(counts.long(), max=N).sum())
+    bound_ms, bound_by = bound(n_bytes, n_ops)
     out = dict(
         B=B, F=F, N=N, I=I, max_rel_err=rel,
         max_abs_err=float((got - want).abs().max()), argmin_agree=agree,
-        ms=cuda_ms(lambda: kern(nP, v, counts), torch),
-        plain_ms=cuda_ms(lambda: plain(nP, v, counts), torch),
+        ms=cuda_ms(lambda: kern(nP, v, counts), torch, flush),
+        plain_ms=cuda_ms(lambda: plain(nP, v, counts), torch, flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
     )
     print(f"# {name} B={B} F={F} N={N} I={I}: max rel err {rel:.3e}, "
           f"argmin agree {agree:.6f}, kernel {out['ms']:.4f} ms, "
-          f"plain {out['plain_ms']:.4f} ms", flush=True)
+          f"plain {out['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     check(rel <= KERNEL_RTOL, f"{name}: kernel differs from plain version ({rel:.3e})")
+    return out
+
+
+def compare_strips(np, torch, ST, shape, dev, seed, random_fidx, flush):
+    """K3 vs plain version at one (T, Hp, Wp, B, N, dtype) launch shape,
+    and `index_select` over the (T * Hp * Wp/128, 128) row view fetching
+    the same strips; returns the measurements."""
+    T, Hp, Wp, B, N, dtype = shape
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == "torch.uint8":
+        img = torch.randint(0, 256, (T, Hp, Wp), dtype=torch.uint8, device=dev, generator=gen)
+    else:
+        img = torch.rand((T, Hp, Wp), dtype=torch.float32, device=dev, generator=gen)
+    NB = Wp // ST.LANE
+    i32 = dict(dtype=torch.int32, device=dev)
+    oyq = torch.tensor(rng.integers(0, (Hp - ST.STRIP_ROWS) // 8 + 1, (B, N)), **i32)
+    obx = torch.tensor(rng.integers(0, NB - 1, (B, N)), **i32)
+    fidx = torch.tensor(rng.integers(0, T, B) if random_fidx else np.arange(B), **i32)
+    got = ST.gather_strips(img, oyq, obx, fidx)
+    want = ST.gather_strips_ref(img, oyq, obx, fidx)
+    rows = (fidx.long()[:, None, None] * Hp + 8 * oyq.long()[..., None]
+            + torch.arange(ST.STRIP_ROWS, device=dev))  # (B, N, 40)
+    idx = (rows[..., None] * NB + obx.long()[..., None, None]
+           + torch.arange(2, device=dev)).reshape(-1)
+    src = img.view(T * Hp * NB, ST.LANE)
+    lib = torch.index_select(src, 0, idx).view(B, N, ST.STRIP_ROWS, 2 * ST.LANE)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want)) and bool(torch.equal(lib, want))
+    # bytes: each image byte a strip covers, read once; the strips
+    # written; the indices read
+    covered = int(torch.unique(idx).numel()) * ST.LANE * img.element_size()
+    n_bytes = covered + got.numel() * got.element_size() + 4 * (2 * B * N + B)
+    bound_ms, bound_by = bound(n_bytes, 0)
+    out = dict(
+        T=T, Hp=Hp, Wp=Wp, B=B, N=N, dtype=dtype, random_fidx=random_fidx,
+        bit_equal=equal, max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=cuda_ms(lambda: ST.gather_strips(img, oyq, obx, fidx), torch, flush, 20),
+        plain_ms=cuda_ms(lambda: ST.gather_strips_ref(img, oyq, obx, fidx), torch, flush, 20),
+        library_ms=cuda_ms(lambda: torch.index_select(src, 0, idx), torch, flush, 20),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+    )
+    print(f"# gather_strips T={T} Hp={Hp} Wp={Wp} B={B} N={N} {dtype} "
+          f"fidx={'random' if random_fidx else 'arange'}: bit-equal {equal}, kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, index_select "
+          f"{out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB)",
+          flush=True)
+    check(equal, f"gather_strips differs from its plain version at {shape}")
     return out
 
 
@@ -143,14 +243,19 @@ def main() -> None:
         import numpy as np
 
         from rssync_tpu_torch import create_sync_problem
+        from rssync_tpu_torch.frontend import tracking as TR
         from rssync_tpu_torch.ops import _kernels
         from rssync_tpu_torch.ops import score as S
+        from rssync_tpu_torch.ops import strips as ST
         from rssync_tpu_torch.pipeline.recipe import (
             SYNC_PASSES,
+            make_syncpoints,
             presync_stage,
             run_batched,
+            set_gyro_rates,
             sync_stage,
             syncpoint_windows,
+            window_pair_ranges,
         )
         from rssync_tpu_torch.testing.engine_problem import (
             OPERATING_POINT,
@@ -158,12 +263,19 @@ def main() -> None:
             PRESYNC_STEP_MS,
             make_engine_problem,
         )
+        from rssync_tpu_torch.testing.synthvideo import make_clip
+        from rssync_tpu_torch.testing.texture_scene import render_scene, tracking_error
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
     dev = torch.device("cuda")
     radius_s = PRESYNC_RADIUS_MS / 1000
+    t_start = time.perf_counter()
+
+    def phase(name, t0):
+        print(f"# phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- phase 1: the card and the build ------------------------------------
+    t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -173,27 +285,25 @@ def main() -> None:
     print(card, flush=True)
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
-    t0 = time.perf_counter()
     _kernels.load()
     print(f"# kernel build+load: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_kernels.build_seconds:.2f} s)", flush=True)
+          f"(nvcc, one process per source, {_kernels.build_seconds:.2f} s)", flush=True)
 
-    # -- phase 2: the main path at the operating point ----------------------
+    # -- phase 2: the engine's main path at the operating point -------------
     t0 = time.perf_counter()
     prob = make_engine_problem(**OPERATING_POINT)
     t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sp = create_sync_problem(seed=0, device=dev)
+    t1 = time.perf_counter()
+    sp = create_sync_problem(seed=0)
     prob.feed(sp)
     window = prob.sync_window
     W = len(prob.syncpoints)
     truth = prob.true_delay
-    t_feed = time.perf_counter() - t0
-    print(f"# host: problem generation {t_gen:.2f} s, SyncProblem intake {t_feed:.2f} s, "
-          f"{W} windows", flush=True)
+    print(f"# host: problem generation {t_gen:.2f} s, SyncProblem intake "
+          f"{time.perf_counter() - t1:.2f} s, {W} windows", flush=True)
 
     S.reset_launch_counters()
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     delays_ms = run_batched(sp, prob.syncpoints, window, 0.0, True,
                             PRESYNC_RADIUS_MS, PRESYNC_STEP_MS)
     first = prob.syncpoints[0]
@@ -202,14 +312,14 @@ def main() -> None:
         cost, d = sp.sync(d, first, first + window, 0.0, radius_s)
     grid, costs = sp.debug_pre_sync(0.0, first, first + window, radius_s, 200)
     torch.cuda.synchronize()
-    t_main = time.perf_counter() - t0
+    t_main = time.perf_counter() - t1
     launches = dict(S.LAUNCHES)
     shapes = {k: sorted(v) for k, v in S.LAUNCH_SHAPES.items()}
-    print(f"# main path (run_batched + one window's pre_sync/4x sync/debug_pre_sync, "
+    print(f"# engine main path (run_batched + one window's pre_sync/4x sync/debug_pre_sync, "
           f"builds windows): {t_main:.2f} s, launches {launches}, "
           f"launch shapes (B, F, N, I) {shapes}", flush=True)
     for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+        check(n > 0, f"kernel {k} was not launched on the engine's main path")
 
     errs_ms = np.abs(np.asarray(delays_ms) - 1000 * truth)
     check(len(delays_ms) == W and bool(np.isfinite(errs_ms).all()), "run_batched: bad delays")
@@ -222,17 +332,22 @@ def main() -> None:
     check(single_err_ms <= OFFSET_TOL_MS, f"SyncProblem offset error {single_err_ms:.4f} ms")
     check(len(costs) == 200 and bool(np.isfinite(costs).all()), "debug_pre_sync: bad costs")
     check(surface_err_ms <= 4.0, "debug_pre_sync surface minimum far from the truth")
+    phase("2 (engine main path)", t0)
 
-    # -- phase 3: each kernel against its plain version, at every shape the
-    # main path launched it at ----------------------------------------------
+    # -- phase 3: K1/K2 against the plain version at every shape the engine's
+    # main path launched them at --------------------------------------------
+    t0 = time.perf_counter()
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     compared = {
-        name: [compare_kernel(np, torch, S, name, shape, dev, seed)
+        name: [compare_score(np, torch, S, name, shape, dev, seed, flush)
                for seed, shape in enumerate(shapes[name])]
         for name in shapes
     }
+    del flush  # phase 5 reads the peak device memory
+    phase("3 (K1/K2 vs plain)", t0)
 
-    # -- phase 4: the kernels against the plain versions end to end: a small
-    # clip on the card and on the CPU --------------------------------------
+    # -- phase 4: a small engine problem on the card and on the CPU ---------
+    t0 = time.perf_counter()
     small = make_engine_problem(seed=3, duration=4.0, fps=30.0, n_features=40,
                                 sync_window=12, syncpoint_distance=30, true_delay=-0.021)
     per_device = []
@@ -241,11 +356,12 @@ def main() -> None:
         small.feed(p)
         per_device.append(run_batched(p, small.syncpoints, 12, 0.0, True, 200.0, 2.0))
     agree_ms = float(np.abs(np.subtract(*per_device)).max())
-    print(f"# small clip: card vs CPU delays agree to {agree_ms:.6f} ms", flush=True)
+    print(f"# small engine problem: card vs CPU delays agree to {agree_ms:.6f} ms", flush=True)
     check(agree_ms <= CPU_AGREE_MS, f"card and CPU disagree by {agree_ms:.4f} ms")
+    phase("4 (engine card vs CPU)", t0)
 
-    # -- phase 5: stage times at the operating point, through the stages
-    # run_batched chains ---------------------------------------------------
+    # -- phase 5: engine stage times at the operating point -----------------
+    t0 = time.perf_counter()
     open_wins, closed_wins = syncpoint_windows(sp, prob.syncpoints, window)
     out = {}
 
@@ -275,19 +391,149 @@ def main() -> None:
           f"max offset err: {bench_err_ms:.4f} ms  peak device memory {peak_gib:.3f} GiB  "
           f"outer iterations per pass {iters} ({card})", flush=True)
     check(bench_err_ms <= OFFSET_TOL_MS, f"timed-run offset error {bench_err_ms:.4f} ms")
+    del sp, open_wins, closed_wins, out
+    phase("5 (engine stage times)", t0)
+
+    # -- phase 6: the tracker at its operating point ------------------------
+    t0 = time.perf_counter()
+    H, Wd = TRACK_HW
+    levels = TR.auto_levels(H, Wd)
+    Hp, Wp = TR._stored_dims(H, Wd, "fine")
+    n_frames = 15 * CHUNK + 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = torch.randint(0, 256, (n_frames, Hp, Wp), dtype=torch.uint8, device=dev,
+                          generator=gen)
+
+    def track_noise():
+        return TR.lk_track_video_chunked(noise, chunk=CHUNK, grid_step=GRID_STEP,
+                                         logical_hw=TRACK_HW)
+
+    ST.reset_launch_counters()
+    tracked = track_noise()
+    torch.cuda.synchronize()
+    k3_launches = dict(ST.LAUNCHES)
+    k3_shapes = sorted(ST.LAUNCH_SHAPES["gather_strips"])
+    n_pts = len(TR.grid_points(Wd, H, GRID_STEP))
+    print(f"# tracker main path ({n_frames} frames {Wd}x{H} stored {Wp}x{Hp}, {levels} levels, "
+          f"plan {TR._fine_plan(levels, TR.LK_ITERS, TR.LK_RADIUS)}, {n_pts} points, chunks of "
+          f"{CHUNK} pairs): launches {k3_launches}, launch shapes (T, Hp, Wp, B, N, dtype) "
+          f"{k3_shapes}", flush=True)
+    check(k3_launches["gather_strips"] > 0, "kernel gather_strips was not launched on the "
+          "tracker's main path")
+    check(tuple(tracked.shape) == (n_frames - 1, n_pts, 2)
+          and bool(torch.isfinite(tracked).all()), "tracker: bad output on noise frames")
+    t_track = wall_s(track_noise, torch)
+    ms_per_pair = 1e3 * t_track / (n_frames - 1)
+    print(f"# tracker: {ms_per_pair:.4f} ms/pair ({t_track:.4f} s for {n_frames - 1} pairs, "
+          f"median of 3 after a warm-up; {card})", flush=True)
+    del noise
+    phase("6 (tracker operating point)", t0)
+
+    # -- phase 7: tracking accuracy on a textured scene ---------------------
+    t0 = time.perf_counter()
+    tex, affines = render_scene(seed=5, n_frames=9, height=H, width=Wd)
+    t_render = time.perf_counter() - t0
+    tex_t = torch.as_tensor(TR.pad_frames_host(tex)).to(dev)
+    tracked = TR.lk_track_video_chunked(tex_t, chunk=8, grid_step=GRID_STEP,
+                                        logical_hw=TRACK_HW).cpu().numpy()
+    pts = TR.grid_points(Wd, H, GRID_STEP)
+    med_px, p95_px = tracking_error(tracked, pts, affines, Wd, H)
+    print(f"# textured scene: host render {t_render:.2f} s (9 frames), tracking error "
+          f"median {med_px:.4f} px, p95 {p95_px:.4f} px over {len(affines) - 1} pairs", flush=True)
+    check(med_px <= TEX_MED_PX and p95_px <= TEX_P95_PX,
+          f"textured tracking error {med_px:.4f} / {p95_px:.4f} px")
+    del tex_t
+    phase("7 (textured accuracy)", t0)
+
+    # -- phase 8: rendered frames -> tracks -> sync at full width ----------
+    t0 = time.perf_counter()
+    clip = make_clip(seed=0, true_delay=0.0423, fps=60.0, n_frames=480, width=Wd,
+                     height=H, gyro_rate=200.0, readout=0.01111, pad=2.0)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    sync_window = 60
+    syncpoints = make_syncpoints({"sync_window": sync_window, "syncpoint_distance": 120},
+                                 0, clip.n_frames - 1)
+    check(syncpoints == [0, 120, 240, 360], f"unexpected syncpoints {syncpoints}")
+    S.reset_launch_counters()
+    ST.reset_launch_counters()
+    t1 = time.perf_counter()
+    sp = create_sync_problem(seed=0)
+    set_gyro_rates(sp, clip.gyro_ts, clip.gyro_rates, clip.orient)
+    TR.track_clip(sp, clip.lens, clip.frames, clip.frame_ts,
+                  window_pair_ranges(syncpoints, sync_window))
+    torch.cuda.synchronize()
+    t_track = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    e2e_ms = np.asarray(run_batched(sp, syncpoints, sync_window, 1.0, True,
+                                    PRESYNC_RADIUS_MS, PRESYNC_STEP_MS))
+    t_sync = time.perf_counter() - t1
+    e2e_err = np.abs(e2e_ms - 1000 * clip.true_delay)
+    print(f"# end to end {Wd}x{H}: render {clip.n_frames} frames on the card {t_render:.2f} s, "
+          f"gyro intake + track {len(syncpoints)} windows ({len(syncpoints) * (sync_window + 1)} "
+          f"pairs) + emit {t_track:.2f} s, run_batched {t_sync:.2f} s; launches "
+          f"{dict(S.LAUNCHES)} {dict(ST.LAUNCHES)}; delays {e2e_ms.round(4).tolist()} ms, "
+          f"truth {1000 * clip.true_delay:.4f} ms, errors {e2e_err.round(4).tolist()} ms",
+          flush=True)
+    check(ST.LAUNCHES["gather_strips"] > 0 and S.LAUNCHES["score_quartile_batched"] > 0,
+          "end to end: a kernel was not launched")
+    check(bool(np.isfinite(e2e_err).all()) and e2e_err.max() <= OFFSET_TOL_MS,
+          f"end to end offset error {e2e_err.max():.4f} ms")
+    del clip, sp
+    phase("8 (end to end at full width)", t0)
+
+    # -- phase 9: a small rendered clip on the card and on the CPU ----------
+    t0 = time.perf_counter()
+    clip = make_clip(seed=2, true_delay=0.0213, n_frames=26, fps=30.0, width=640,
+                     height=480, pad=1.0)
+    syncpoints = make_syncpoints({"sync_window": 8, "syncpoint_distance": 8}, 0, 25)
+    tracks, delays = [], []
+    for where in (dev, torch.device("cpu")):
+        frames = clip.frames.to(where)
+        tracks.append(TR.lk_track_video(frames).cpu().numpy())
+        p = create_sync_problem(seed=0, device=where)
+        set_gyro_rates(p, clip.gyro_ts, clip.gyro_rates, clip.orient)
+        TR.track_clip(p, clip.lens, frames, clip.frame_ts, window_pair_ranges(syncpoints, 8))
+        delays.append(np.asarray(run_batched(p, syncpoints, 8, 0.5, True, 80.0, 2.0)))
+    track_px = float(np.abs(tracks[0] - tracks[1]).max())
+    delay_agree = float(np.abs(delays[0] - delays[1]).max())
+    small_err = float(np.abs(delays[0] - 1000 * clip.true_delay).max())
+    print(f"# small rendered clip 640x480: card vs CPU tracks agree to {track_px:.6f} px, "
+          f"delays to {delay_agree:.6f} ms; card error {small_err:.4f} ms", flush=True)
+    check(track_px <= TRACK_AGREE_PX, f"card and CPU tracks differ by {track_px:.6f} px")
+    check(delay_agree <= CPU_AGREE_MS, f"card and CPU delays differ by {delay_agree:.4f} ms")
+    check(small_err <= OFFSET_TOL_MS, f"small clip offset error {small_err:.4f} ms")
+    phase("9 (rendered clip card vs CPU)", t0)
+
+    # -- phase 10: K3 against its plain version ------------------------------
+    t0 = time.perf_counter()
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    strip_rows = [compare_strips(np, torch, ST, shape, dev, seed, False, flush)
+                  for seed, shape in enumerate(k3_shapes)]
+    strip_rows.append(compare_strips(np, torch, ST, (9, 96, 384, 5, 17, "torch.float32"), dev,
+                                     99, True, flush))
+    phase("10 (K3 vs plain)", t0)
 
     replaces = {"score_quartile": "rssync_tpu/ops/pallas_score.py:139",
-                "score_quartile_batched": "rssync_tpu/ops/pallas_score.py:230"}
+                "score_quartile_batched": "rssync_tpu/ops/pallas_score.py:230",
+                "gather_strips": "rssync_tpu/frontend/tracking.py:434"}
+    sources = {"score_quartile": "rssync_tpu_torch/csrc/score_quartile.cu",
+               "score_quartile_batched": "rssync_tpu_torch/csrc/score_quartile.cu",
+               "gather_strips": "rssync_tpu_torch/csrc/gather_strips.cu"}
+    main_launches = dict(launches, **k3_launches)
+    rows_of = dict(compared, gather_strips=strip_rows)
+    main_rows = dict(compared, gather_strips=strip_rows[: len(k3_shapes)])
     kernels = []
-    for name, rows in compared.items():
+    for name, rows in rows_of.items():
         # the times stated are those of the main path's heaviest launch shape
-        heavy = max(rows, key=lambda r: r["B"] * r["F"] * r["I"])
+        heavy = max(main_rows[name], key=lambda r: r["bound_ms"])
         kernels.append(dict(
-            name=name, route="cuda", source="rssync_tpu_torch/csrc/score_quartile.cu",
-            replaces=replaces[name], launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=heavy["ms"], plain_ms=heavy["plain_ms"], shapes=rows,
+            name=name, route="cuda", source=sources[name], replaces=replaces[name],
+            launches=main_launches[name], max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=heavy["ms"], plain_ms=heavy["plain_ms"], bound_ms=heavy["bound_ms"],
+            bound_by=heavy["bound_by"], library_ms=heavy["library_ms"], shapes=rows,
         ))
+    print(f"# total {time.perf_counter() - t_start:.2f} s ({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,25 @@
-"""rssync_tpu_torch — the PyTorch + CUDA port of the rssync_tpu sync engine.
+"""rssync_tpu_torch — the PyTorch + CUDA port of rssync_tpu.
 
 Recovers the clock delay between a rolling-shutter camera video and its
 gyroscope log, with the same ISyncProblem surface as `rssync_tpu`
 (`create_sync_problem` -> `set_gyro_quaternions` / `set_track_result` /
-`pre_sync` / `sync` / `debug_pre_sync`). Plain tensor math is PyTorch;
-the RANSAC hypothesis scoring is a hand-written CUDA kernel for Hopper
-(`csrc/score_quartile.cu`), built with nvcc at first use.
+`pre_sync` / `sync` / `debug_pre_sync`) and its LK tracker. Plain
+tensor math is PyTorch; the RANSAC hypothesis scoring
+(`csrc/score_quartile.cu`) and the tracker's strip fetch
+(`csrc/gather_strips.cu`) are hand-written CUDA kernels for Hopper,
+built with nvcc at first use. Entry points run on the card unless the
+caller asks for the CPU.
 
 Layering (mirrors rssync_tpu):
 
-  ops/       quaternions, splines, robust-loss helpers, the scoring kernel
+  ops/       quaternions, splines, robust-loss helpers, the fisheye lens,
+             the scoring and strip-fetch kernels
+  frontend/  gyro integration, axis conventions, the LK tracker with
+             rolling-shutter timestamps and ray lifting
   core/      epipolar problem, RANSAC, PreSync, Sync, the SyncProblem API
   parallel/  batched PreSync / Sync over a leading window axis
-  pipeline/  the batched syncpoint run
-  testing/   synthetic engine problems with known delay
+  pipeline/  gyro intake from rates and the batched syncpoint run
+  testing/   synthetic problems, rendered clips and scenes, profilers
   utils/     invariant guards
 
 float32 math is pinned to IEEE at import: TF32 would silently drop

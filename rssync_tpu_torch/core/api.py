@@ -16,8 +16,9 @@ Quaternions are (count, 4) in (w, x, y, z) order. PreSync/DebugPreSync
 take frames in the half-open [begin, end) (ref :66, :343), Sync in the
 closed [begin, end] (ref :219).
 
-Every tensor lives on the device given at construction; asking for
-CUDA where there is none raises. Every random draw flows from one seed
+Every tensor lives on the device given at construction, the card
+unless the caller asks for the CPU; asking for CUDA where there is none
+raises. Every random draw flows from one seed
 through `torch.Generator`s, one per engine call, so identical call
 sequences on the same device reproduce.
 """
@@ -113,7 +114,7 @@ def _slerp64(p: np.ndarray, q: np.ndarray, t: np.ndarray) -> np.ndarray:
 class SyncProblem:
     """One gyro-to-video synchronization problem instance on `device`."""
 
-    def __init__(self, seed: int = 0, *, device):
+    def __init__(self, seed: int = 0, *, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"SyncProblem: {self.device} requested but CUDA is not available")
@@ -311,6 +312,6 @@ class SyncProblem:
             initial_delay, frame_begin, frame_end, search_radius, point_count)
 
 
-def create_sync_problem(seed: int = 0, *, device) -> SyncProblem:
+def create_sync_problem(seed: int = 0, *, device="cuda") -> SyncProblem:
     """Factory mirroring `CreateSyncProblem()` (ref: core_private.cpp:363)."""
     return SyncProblem(seed=seed, device=device)

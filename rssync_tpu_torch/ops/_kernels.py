@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `rssync_tpu_torch/csrc/` are compiled with nvcc for
-Hopper (`sm_90a`) into a shared library with a plain C interface, at
-first use, into `rssync_tpu_torch/build/` (listed in .gitignore). The
+Hopper (`sm_90a`), one nvcc process per source, all started together,
+and linked into one shared library with a plain C interface, at first
+use, into `rssync_tpu_torch/build/` (listed in .gitignore). The
 library name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded. It is bound
 with ctypes: every pointer and the stream are passed as c_void_p.
@@ -26,11 +27,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("score_quartile.cu",)
+SOURCES = ("score_quartile.cu", "gather_strips.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -62,22 +63,35 @@ def _library_path() -> Path:
     return BUILD_DIR / f"librssync_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds: list[list[str]]) -> None:
+    """Run the nvcc commands at once; raise with every failure's output."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in cmds
+    ]
+    errors = []
+    for cmd, p in procs:
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def _build(target: Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)
+    nvcc = _nvcc()
+    # compile into a private directory, then rename the library into
+    # place: concurrent builds never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                   for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, target)
     build_seconds = time.perf_counter() - t0
 
 
@@ -101,5 +115,13 @@ def load() -> ctypes.CDLL:
         lib.score_quartile_smem_bytes.restype = ctypes.c_size_t
         lib.score_quartile_error_string.argtypes = [ctypes.c_int]
         lib.score_quartile_error_string.restype = ctypes.c_char_p
+        lib.gather_strips_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.gather_strips_launch.restype = ctypes.c_int
+        lib.gather_strips_error_string.argtypes = [ctypes.c_int]
+        lib.gather_strips_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib

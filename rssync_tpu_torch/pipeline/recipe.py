@@ -12,15 +12,36 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from rssync_tpu_torch.core.api import SyncProblem
 from rssync_tpu_torch.core.presync import presync_grid
 from rssync_tpu_torch.core.problem import TrackWindow
 from rssync_tpu_torch.core.sync import SyncResult
+from rssync_tpu_torch.frontend.integrate import integrate_gyro
+from rssync_tpu_torch.frontend.telemetry import apply_orientation
 from rssync_tpu_torch.parallel.batch import batched_presync, batched_sync, stack_windows
 
 SYNC_PASSES = 4  # ref core_testcode.cpp:314
+
+
+def set_gyro_rates(problem: SyncProblem, timestamps: np.ndarray, rates: np.ndarray,
+                   orient: str | None) -> None:
+    """Gyro intake from a rate log (ref: core_testcode.cpp:37-54): remap
+    the axes by `orient`, integrate the rates into orientations, and
+    feed the variable-rate intake with the timestamps in integer us.
+    timestamps: (n,) seconds; rates: (n, 3) rad/s."""
+    quats = integrate_gyro(timestamps, apply_orientation(np.asarray(rates, np.float64), orient))
+    ts_us = np.round(np.asarray(timestamps, np.float64) * 1_000_000).astype(np.int64)
+    problem.set_gyro_quaternions_us(ts_us, quats)
+
+
+def window_pair_ranges(syncpoints: list[int], sync_window: int) -> list[tuple[int, int]]:
+    """The frame pairs the batched run reads, as (begin, end) ranges with
+    end exclusive: the closed Sync window [p, p + sync_window] of every
+    syncpoint (PreSync's half-open window lies inside it)."""
+    return [(p, p + sync_window + 1) for p in syncpoints]
 
 
 def make_syncpoints(params: dict, frame_start: int, frame_end: int) -> list[int]:

@@ -1,0 +1,565 @@
+"""The port's tracker (rssync_tpu_torch/frontend/tracking.py), its strip
+fetch K3 (ops/strips.py) and its frame renderers, held to rssync_tpu on
+the same numpy inputs; and the slice as a whole: rendered frames ->
+tracks -> rays + rolling-shutter timestamps -> SyncProblem ->
+run_batched.
+
+On the CPU the strip fetch takes its plain version, and rssync_tpu's
+Pallas kernel runs in interpret mode. JAX is imported only inside the
+`ref` fixture, so the card tests run where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_tracking.py
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rssync_tpu_torch import create_sync_problem
+from rssync_tpu_torch.frontend import tracking as T
+from rssync_tpu_torch.ops import lens as tlens
+from rssync_tpu_torch.ops import strips as S
+from rssync_tpu_torch.pipeline.recipe import (
+    make_syncpoints,
+    run_batched,
+    set_gyro_rates,
+    window_pair_ranges,
+)
+from rssync_tpu_torch.testing import synthvideo as tsynth
+from rssync_tpu_torch.testing import texture_scene as ttex
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+#: tracked positions: float32 Gauss-Newton steps whose sums and small
+#: matmuls reduce in another order than XLA's
+TRACK_ATOL = 2e-3
+#: coarse-stage flow: exact integer SADs, then float32 parabola and
+#: bilinear-sample sums
+COARSE_ATOL = 1e-4
+#: delays: the engine's accuracy target, and the agreement with
+#: rssync_tpu's tracker + engine (float32 optimizations of the same
+#: loss from different RANSAC draws)
+TRUTH_TOL_MS, JAX_TOL_MS = 0.5, 0.1
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """rssync_tpu's tracker, lens, renderers and engine (JAX on the CPU)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import rssync_tpu
+    from rssync_tpu.frontend import tracking
+    from rssync_tpu.ops import lens
+    from rssync_tpu.pipeline.recipe import _run_batched
+    from rssync_tpu.testing import synthvideo, texture_scene
+
+    class Ref:
+        pass
+
+    r = Ref()
+    r.jnp, r.tracking, r.lens, r.synthvideo, r.texture_scene = (
+        jnp, tracking, lens, synthvideo, texture_scene)
+    r.create_sync_problem, r.run_batched = rssync_tpu.create_sync_problem, _run_batched
+    return r
+
+
+def _u8(rng, *shape):
+    return rng.integers(0, 255, shape).astype(np.uint8)
+
+
+def _texture_image(rng, h, w):
+    """1/f-like random texture (tests/test_tracking.py's generator)."""
+    from scipy.ndimage import gaussian_filter
+
+    img = np.zeros((h, w))
+    for sigma, amp in [(1.5, 1.0), (4.0, 2.0), (12.0, 4.0), (32.0, 8.0)]:
+        img += amp * gaussian_filter(rng.normal(size=(h, w)), sigma)
+    img -= img.min()
+    img *= 255.0 / img.max()
+    return img
+
+
+# ---------------------------------------------------------------------------
+# pyramid
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_pyramid_matches_jax(ref, padded):
+    """Measured equal on this input; held to rssync_tpu's own bound for
+    the f32 second contraction: at most 1 level apart on <= 0.1 % of
+    the pixels."""
+    H, W, levels = 250, 333, 6
+    need = [0, 2, 4, 5]
+    imgs = _u8(np.random.default_rng(0), 2, H, W)
+    if padded:
+        plan = {l: ("fine" if l in (0, 2) else "lane") for l in need}
+        want = ref.tracking.build_pyramid_sparse(
+            ref.tracking._pad_lanes(ref.jnp.asarray(imgs), True), levels, need, (H, W), plan)
+        got = T.build_pyramid_sparse(
+            T._pad_lanes(torch.as_tensor(imgs), True), levels, need, (H, W), plan)
+    else:
+        want = ref.tracking.build_pyramid_sparse(ref.jnp.asarray(imgs), levels, need)
+        got = T.build_pyramid_sparse(torch.as_tensor(imgs), levels, need)
+    for l in need:
+        w, g = np.asarray(want[l]).astype(int), got[l].numpy().astype(int)
+        assert g.shape == w.shape and got[l].dtype == torch.uint8, l
+        diff = np.abs(g - w)
+        assert diff.max() <= 1 and np.count_nonzero(diff) <= 1e-3 * diff.size, l
+
+
+def test_padded_pyramid_equals_pad_after_build():
+    H, W, levels = 250, 333, 6
+    need = [0, 2, 4, 5]
+    imgs = torch.as_tensor(_u8(np.random.default_rng(1), 2, H, W))
+    plain = T.build_pyramid_sparse(imgs, levels, need)
+    plan = {l: ("fine" if l in (0, 2) else "lane") for l in need}
+    folded = T.build_pyramid_sparse(T._pad_lanes(imgs, True), levels, need, (H, W), plan)
+    for l in need:
+        assert torch.equal(folded[l], T._pad_lanes(plain[l], l in (0, 2))), l
+
+
+def test_pad_frames_host_matches_device_pad():
+    frames = _u8(np.random.default_rng(2), 3, 123, 201)
+    got = T.pad_frames_host(frames)
+    assert torch.equal(torch.as_tensor(got), T._pad_lanes(torch.as_tensor(frames), True))
+    Hp, Wp = got.shape[1:]
+    stacked = T.stack_pad_host(list(frames[:2]), 3, 123, 201, Hp, Wp)
+    np.testing.assert_array_equal(stacked, T.pad_frames_host(frames[[0, 1, 1]]))
+
+
+# ---------------------------------------------------------------------------
+# K3: the strip fetch
+
+
+def _strip_inputs(seed, dtype, fidx):
+    rng = np.random.default_rng(seed)
+    Tn, H, W, B, N = 5, 96, 300, 3, 17
+    imgs = _u8(rng, Tn, H, W) if dtype == "uint8" else rng.normal(size=(Tn, H, W)).astype(np.float32)
+    Hp, Wp = H, -(-W // S.LANE) * S.LANE
+    imgs = np.pad(imgs, ((0, 0), (0, 0), (0, Wp - W)), mode="edge")
+    Bn = B if fidx else Tn
+    oyq = rng.integers(0, (Hp - S.STRIP_ROWS) // 8 + 1, (Bn, N)).astype(np.int32)
+    obx = rng.integers(0, Wp // S.LANE - 1, (Bn, N)).astype(np.int32)
+    f = rng.integers(0, Tn, B).astype(np.int32) if fidx else None
+    return imgs, oyq, obx, f
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("fidx", [False, True])
+def test_gather_strips_ref_matches_pallas_and_blocks(ref, dtype, fidx):
+    imgs, oyq, obx, f = _strip_inputs(3, dtype, fidx)
+    jnp = ref.jnp
+    jf = None if f is None else jnp.asarray(f)
+    pallas = np.asarray(ref.tracking._gather_strips_pallas(
+        jnp.asarray(imgs), jnp.asarray(oyq), jnp.asarray(obx), interpret=True, fidx=jf))
+    blocks = np.asarray(ref.tracking._gather_blocks(
+        jnp.asarray(imgs), jnp.asarray(oyq) * 8, jnp.asarray(obx), S.STRIP_ROWS, fidx=jf))
+    tf = None if f is None else torch.as_tensor(f)
+    args = (torch.as_tensor(imgs), torch.as_tensor(oyq), torch.as_tensor(obx), tf)
+    got = S.gather_strips(*args)
+    assert got.dtype == args[0].dtype and got.shape == pallas.shape
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(S.gather_strips_ref(*args).numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy().astype(np.float32), blocks)
+
+
+def test_gather_blocks_matches_jax_with_clamping(ref):
+    """Rows and blocks outside the image clamp per row."""
+    rng = np.random.default_rng(4)
+    imgs = _u8(rng, 2, 40, 256)
+    oy = rng.integers(-12, 40, (2, 9)).astype(np.int32)
+    obx = rng.integers(-1, 2, (2, 9)).astype(np.int32)
+    jnp = ref.jnp
+    want = np.asarray(ref.tracking._gather_blocks(jnp.asarray(imgs), jnp.asarray(oy), jnp.asarray(obx), 23))
+    got = S.gather_blocks(torch.as_tensor(imgs), torch.as_tensor(oy), torch.as_tensor(obx), 23)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_strips_checks_its_inputs():
+    imgs, oyq, obx, _ = _strip_inputs(5, "uint8", False)
+    args = [torch.as_tensor(x) for x in (imgs, oyq, obx)]
+    with pytest.raises(TypeError, match="uint8 or float32"):
+        S.gather_strips(args[0].to(torch.int16), args[1], args[2])
+    with pytest.raises(ValueError, match="Wp % 128"):
+        S.gather_strips(args[0][..., :200], args[1], args[2])
+    with pytest.raises(ValueError, match="must be \\(B, N\\)"):
+        S.gather_strips(args[0], args[1], args[2][:, :3])
+    with pytest.raises(ValueError, match="need fidx"):
+        S.gather_strips(args[0], args[1][:2], args[2][:2])
+
+
+def test_strip_path_predicate_matches_jax(ref):
+    jnp = ref.jnp
+    for shape, dtype, n in [((2, 536, 768), "uint8", 130), ((2, 39, 256), "uint8", 5),
+                            ((2, 64, 128), "uint8", 5), ((2, 64, 256), "float32", 200),
+                            ((2, 64, 256), "float32", 210), ((2, 64, 256), "int16", 5)]:
+        want = ref.tracking._strip_path_ok(jnp.zeros(shape, dtype), n)
+        assert S.strip_path_ok(torch.zeros(shape, dtype=getattr(torch, dtype)), n) == want
+
+
+# ---------------------------------------------------------------------------
+# tracker stages
+
+
+def test_static_templates_match_dynamic():
+    """Integer origins, patches running off every edge."""
+    rng = np.random.default_rng(6)
+    imgs = T._pad_lanes(torch.as_tensor(_u8(rng, 2, 120, 256)))
+    origins = np.asarray([[3, 0], [40, 57], [200, 110], [200, 112], [10, 105], [-4, -3]],
+                         np.float64)
+    a = T._extract_patches_static(imgs, origins, 15)
+    o = torch.as_tensor(origins, dtype=torch.float32)[None].expand(2, -1, -1)
+    b = T._extract_patches(imgs, o, 15)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+
+
+def test_coarse_init_matches_jax(ref):
+    rng = np.random.default_rng(7)
+    H, W = 260, 400
+    frames = _u8(rng, 5, H, W)
+    levels = T.auto_levels(H, W)
+    need = T._needed_levels(levels, T.LK_ITERS, T.LK_RADIUS)
+    jp = ref.tracking.build_pyramid_sparse(ref.jnp.asarray(frames), levels, need)
+    tp = T.build_pyramid_sparse(torch.as_tensor(frames), levels, need)
+    lg = levels - 1
+    lv = max(T._fine_plan(levels, T.LK_ITERS, T.LK_RADIUS)[0][0] + 1, lg - 2)
+    D = max(2, min(tp[lg].shape[-2:]) // 3)
+    pts = T.grid_points(W, H, 80).astype(np.float32)
+    want = np.asarray(ref.tracking._coarse_init(
+        {l: (jp[l][:-1], jp[l][1:]) for l in (lv, lg)}, lv, lg, pts, D))
+    got = T._coarse_init({l: (tp[l][:-1], tp[l][1:]) for l in (lv, lg)}, lv, lg, pts, D)
+    np.testing.assert_allclose(got.numpy(), want, atol=COARSE_ATOL)
+
+
+def _top_edge_case():
+    rng = np.random.default_rng(8)
+    frames = _u8(rng, 3, 160, 384)
+    pts = np.asarray(
+        [[60.0, 40.0], [200.0, 80.0], [300.0, 120.0], [120.0, 130.0],
+         [64.0, 2.0], [180.0, 5.0], [256.0, 0.0]])  # last 3: top edge
+    return frames, dict(pts=pts)
+
+
+def _grid_case():
+    return _u8(np.random.default_rng(9), 9, 260, 400), dict(grid_step=80)
+
+
+@pytest.mark.parametrize("case", ["grid_260x400", "top_edge_160x384"])
+def test_lk_track_video_matches_jax(ref, case):
+    frames, kw = _grid_case() if case == "grid_260x400" else _top_edge_case()
+    want = np.asarray(ref.tracking.lk_track_video(ref.jnp.asarray(frames), **kw))
+    got = T.lk_track_video(torch.as_tensor(frames), **kw)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=TRACK_ATOL)
+
+
+def test_strip_route_matches_block_route(monkeypatch):
+    """The strip fetch with its quantized rows and clamped taps tracks
+    like the per-row-clamped block gather, windows over the top edge
+    included."""
+    frames, kw = _top_edge_case()
+    base = T.lk_track_video(torch.as_tensor(frames), **kw)
+    monkeypatch.setattr(T, "strip_path_ok", lambda img, n_pts: False)
+    blocks = T.lk_track_video(torch.as_tensor(frames), **kw)
+    np.testing.assert_allclose(base.numpy(), blocks.numpy(), atol=TRACK_ATOL)
+
+
+def test_chunked_equals_video_and_prepadded():
+    frames, kw = _grid_case()
+    H, W = frames.shape[1:]
+    whole = T.lk_track_video(torch.as_tensor(frames), **kw)
+    chunked = T.lk_track_video_chunked(torch.as_tensor(frames), chunk=4, **kw)
+    assert torch.equal(chunked, whole)
+    pre = T.lk_track_video_chunked(torch.as_tensor(T.pad_frames_host(frames)), chunk=4,
+                                   logical_hw=(H, W), **kw)
+    assert torch.equal(pre, whole)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        T.lk_track_video_chunked(torch.as_tensor(frames), chunk=3, **kw)
+    with pytest.raises(ValueError, match="pre-padded"):
+        T.lk_track_video(torch.as_tensor(frames), logical_hw=(H, W), **kw)
+
+
+def test_lk_track_recovers_known_translation():
+    from scipy.ndimage import shift as nd_shift
+
+    img = _texture_image(np.random.default_rng(10), 240, 320)
+    shift = np.array([6.3, -3.7])
+    img_b = nd_shift(img, (shift[1], shift[0]), order=1, mode="nearest")
+    pts = T.grid_points(320, 240, 60)
+    tracked = T.lk_track(torch.as_tensor(img, dtype=torch.float32),
+                         torch.as_tensor(img_b, dtype=torch.float32), pts).numpy()
+    inner = (pts[:, 0] > 40) & (pts[:, 0] < 280) & (pts[:, 1] > 40) & (pts[:, 1] < 200)
+    err = np.linalg.norm(tracked[inner] - pts[inner] - shift, axis=1)
+    assert np.median(err) < 0.1
+    assert err.max() < 0.5
+
+
+def test_grid_and_schedule_match_jax(ref):
+    jt = ref.tracking
+    for w, h in [(2704, 2028), (640, 480), (400, 260), (100, 60)]:
+        np.testing.assert_array_equal(T.grid_points(w, h), jt.grid_points(w, h))
+        lv = T.auto_levels(h, w)
+        assert lv == jt.auto_levels(h, w)
+        assert T._fine_plan(lv, 10, 10) == jt._fine_plan(lv, 10, 10)
+        assert T._needed_levels(lv, 10, 10) == jt._needed_levels(lv, 10, 10)
+    assert T._needed_levels(8, 10, 10) == [0, 2, 5, 7]
+
+
+# ---------------------------------------------------------------------------
+# rays, timestamps and emission
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def set_track_result(self, frame, ts_a, ts_b, rays_a, rays_b):
+        self.calls.append((frame, *(np.array(x, np.float64) for x in (ts_a, ts_b, rays_a, rays_b))))
+
+
+def test_lift_rays_and_emission_match_jax(ref):
+    rng = np.random.default_rng(11)
+    params = dict(ro=0.01, fx=500.0, fy=500.0, cx=320.0, cy=240.0, k1=0.02)
+    jl = ref.lens.Lens(**params)
+    tl = tlens.Lens.from_array(jl.as_array())
+    pts = T.grid_points(640, 480, 80)
+    tracked = (pts[None] + rng.normal(scale=3.0, size=(4, *pts.shape))).astype(np.float32)
+    jnp = ref.jnp
+    ra, rb = ref.tracking.lift_rays(jl, jnp.asarray(pts, jnp.float32), jnp.asarray(tracked[0]))
+    ta, tb = T.lift_rays(tl, torch.as_tensor(pts, dtype=torch.float32), torch.as_tensor(tracked[0]))
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ra), atol=1e-6)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(rb), atol=1e-6)
+    for a, b in zip(T.rolling_shutter_ts(tl, pts, tracked[0], 1.0, 1.04, 480),
+                    ref.tracking.rolling_shutter_ts(jl, pts, tracked[0], 1.0, 1.04, 480)):
+        np.testing.assert_array_equal(a, b)
+
+    frame_ts = 100.0 + np.arange(5) / 30.0
+    want, got, block = _Recorder(), _Recorder(), _Recorder()
+    pj, pt = jnp.asarray(pts, jnp.float32), torch.as_tensor(pts, dtype=torch.float32)
+    for i in range(4):
+        ref.tracking.emit_track_result(want, jl, pts, pj, 480, 7 + i, tracked[i],
+                                       frame_ts[i], frame_ts[i + 1])
+        T.emit_track_result(got, tl, pts, pt, 480, 7 + i, tracked[i], frame_ts[i], frame_ts[i + 1])
+    T.emit_track_block(block, tl, pts, torch.as_tensor(tracked), np.arange(7, 11), frame_ts, 480)
+    assert [c[0] for c in got.calls] == [c[0] for c in block.calls] == list(range(7, 11))
+    for w, g, b in zip(want.calls, got.calls, block.calls):
+        for x, y, z in zip(w[1:], g[1:], b[1:]):
+            np.testing.assert_allclose(y, x, atol=1e-6, rtol=0)
+            np.testing.assert_array_equal(z, y)
+
+
+# ---------------------------------------------------------------------------
+# renderers
+
+
+def test_texture_scene_equals_jax(ref):
+    want, want_aff = ref.texture_scene.render_scene(3, 4, 120, 160, cache_dir=None)
+    got, got_aff = ttex.render_scene(3, 4, 120, 160, cache_dir=None)
+    np.testing.assert_array_equal(got, want)
+    for (r0, o0), (r1, o1) in zip(got_aff, want_aff):
+        np.testing.assert_array_equal(r0, r1)
+        np.testing.assert_array_equal(o0, o1)
+    pts = T.grid_points(160, 120, 40)
+    flow = ttex.true_flow(got_aff, pts)
+    np.testing.assert_array_equal(flow, ref.texture_scene.true_flow(want_aff, pts))
+    tracked = pts[None] + flow
+    assert ttex.tracking_error(tracked, pts, got_aff, 160, 120, border=5) == (0.0, 0.0)
+
+
+def test_synthvideo_frames_match_jax(ref):
+    """Per-pixel float32 sin/tanh of the two frameworks: at most 1 level
+    apart on <= 1 % of the pixels."""
+    H, W, fps, readout, seed = 48, 64, 30.0, 0.0085, 7
+    clip = tsynth.make_clip(seed=seed, n_frames=3, width=W, height=H, fps=fps,
+                            readout=readout, device="cpu")
+    s = W / 2704.0
+    jl = ref.lens.Lens(ro=readout, fx=1186.0 * s, fy=1186.0 * s, cx=W * 0.5012, cy=H * 0.5033,
+                       k1=0.0444, k2=0.0195, k3=-0.00448, k4=-0.00204)
+    assert clip.lens == tlens.Lens.from_array(jl.as_array())
+    jnp = ref.jnp
+    uu, vv = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    rays = ref.lens.rays_from_normalized(
+        ref.lens.undistort_points(jl, jnp.asarray(np.stack([uu, vv], -1), jnp.float32)))
+    for f in range(3):
+        rt = jnp.asarray(f / fps + readout * (np.arange(H) / H), jnp.float32)
+        want = np.asarray(ref.synthvideo._render_rows(rt, rays, seed)).astype(int)
+        diff = np.abs(clip.frames[f].numpy().astype(int) - want)
+        assert diff.max() <= 1 and np.count_nonzero(diff) <= 0.01 * diff.size, f
+
+
+def test_synthvideo_gyro_log_matches_jax_make_clip(ref, tmp_path):
+    """The rates rssync_tpu writes to its .gcsv (9 decimals) and the
+    clock it reports. Both evaluate the trajectory's angles in float32;
+    the rates are their differences x 200 Hz, so an ulp of sin (3e-8
+    rad) in either framework moves a rate by up to ~1e-5 rad/s."""
+    pytest.importorskip("cv2")
+    kw = dict(seed=4, true_delay=0.0123, n_frames=4, fps=30.0, width=64, height=48, pad=1.0)
+    jclip = ref.synthvideo.make_clip(str(tmp_path), **kw)
+    tclip = tsynth.make_clip(**kw, device="cpu")
+    log = np.loadtxt(jclip.gyro_path, delimiter=",", skiprows=7)
+    np.testing.assert_allclose(tclip.gyro_ts * 1000.0, log[:, 0], atol=1e-6)
+    np.testing.assert_allclose(tclip.gyro_rates, log[:, 1:], atol=2e-5)
+    assert tclip.true_delay == jclip.true_delay and tclip.orient == jclip.orient
+    assert tclip.lens.as_array().tolist() == jclip.lens.as_array().tolist()
+    assert tclip.frames.shape == (4, 48, 64) and tclip.frames.dtype == torch.uint8
+
+
+# ---------------------------------------------------------------------------
+# the slice end to end
+
+
+def test_slice_end_to_end_matches_jax(ref):
+    """A rendered 640x480 clip (26 frames, 30 fps, the windows and
+    PreSync of tests/test_pipeline.py): tracked and synced on the CPU by
+    the port, and by rssync_tpu's tracker + engine on the same frames
+    and gyro log."""
+    clip = tsynth.make_clip(seed=2, true_delay=0.0213, n_frames=26, fps=30.0,
+                            width=640, height=480, pad=1.0, device="cpu")
+    window = 8
+    syncpoints = make_syncpoints({"sync_window": window, "syncpoint_distance": 8}, 0, 25)
+    assert syncpoints == [0, 8, 16]
+    sp = create_sync_problem(0, device="cpu")
+    set_gyro_rates(sp, clip.gyro_ts, clip.gyro_rates, clip.orient)
+    T.track_clip(sp, clip.lens, clip.frames, clip.frame_ts, window_pair_ranges(syncpoints, window))
+    got = np.asarray(run_batched(sp, syncpoints, window, 0.5, True, 80.0, 2.0))
+    assert np.abs(got - 1000.0 * clip.true_delay).max() < TRUTH_TOL_MS
+
+    jsp = ref.create_sync_problem(seed=0)
+    jsp.set_gyro_quaternions_us(*_gyro_intake(clip))
+    jl = ref.lens.Lens(*clip.lens.as_array())
+    pts = ref.tracking.grid_points(640, 480)
+    tracked = np.asarray(ref.tracking.lk_track_video(ref.jnp.asarray(clip.frames.numpy())))
+    pj = ref.jnp.asarray(pts, ref.jnp.float32)
+    for i in range(25):
+        ref.tracking.emit_track_result(jsp, jl, pts, pj, 480, i, tracked[i],
+                                       clip.frame_ts[i], clip.frame_ts[i + 1])
+    want = np.asarray(ref.run_batched(jsp, syncpoints, window, 0.5, True, 80.0, 2.0, False))
+    assert np.abs(got - want).max() < JAX_TOL_MS
+
+
+def _gyro_intake(clip):
+    """(timestamps in us, quaternions) as `set_gyro_rates` feeds them."""
+    from rssync_tpu_torch.frontend.integrate import integrate_gyro
+    from rssync_tpu_torch.frontend.telemetry import apply_orientation
+
+    quats = integrate_gyro(clip.gyro_ts, apply_orientation(clip.gyro_rates, clip.orient))
+    return np.round(clip.gyro_ts * 1e6).astype(np.int64), quats
+
+
+def test_track_clip_ranges_and_tail_blocks():
+    """Each range is tracked in blocks with a repeated-frame tail; the
+    emitted pairs are exactly those of the ranges, with the tracks of
+    one whole-clip pass."""
+    frames = torch.as_tensor(_u8(np.random.default_rng(12), 12, 120, 160))
+    lens = tlens.Lens(ro=0.01, fx=100.0, fy=100.0, cx=80.0, cy=60.0)
+    rec, whole = _Recorder(), _Recorder()
+    ts = np.arange(12) / 30.0
+    T.track_clip(rec, lens, frames, ts, [(0, 3), (5, 11)], block=4)
+    T.track_clip(whole, lens, frames, ts, block=11)
+    assert [c[0] for c in rec.calls] == [0, 1, 2, 5, 6, 7, 8, 9, 10]
+    assert [c[0] for c in whole.calls] == list(range(11))
+    for c in rec.calls:
+        for x, y in zip(c[1:], whole.calls[c[0]][1:]):
+            np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the port stands alone, and runs on the card unless asked otherwise
+
+
+def _imported_modules(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_port_and_chip_smoke_import_neither_jax_nor_rssync_tpu():
+    files = sorted((REPO / "rssync_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        bad = {m for m in _imported_modules(f)
+               if m.split(".")[0] in ("jax", "jaxlib", "rssync_tpu")}
+        assert not bad, (f, bad)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        assert create_sync_problem().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_sync_problem()
+
+
+# ---------------------------------------------------------------------------
+# on a card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("fidx", [False, True])
+def test_gather_strips_kernel_matches_plain_on_card(cuda, dtype, fidx):
+    imgs, oyq, obx, f = _strip_inputs(13, dtype, fidx)
+    args = [None if x is None else torch.as_tensor(x, device=cuda) for x in (imgs, oyq, obx, f)]
+    before = S.LAUNCHES["gather_strips"]
+    got = S.gather_strips(*args)
+    want = S.gather_strips_ref(*args)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["gather_strips"] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gather_strips_kernel_refuses_bad_inputs(cuda):
+    """Host-visible preconditions raise at the call. The indices live on
+    the card, so the kernel checks them itself and traps: a CUDA error
+    at the next synchronize, in a process of its own (a trap ends the
+    process's CUDA context)."""
+    imgs, oyq, obx, _ = _strip_inputs(14, "uint8", False)
+    args = [torch.as_tensor(x, device=cuda) for x in (imgs, oyq, obx)]
+    with pytest.raises(TypeError, match="int32"):
+        S.gather_strips(args[0], args[1].long(), args[2])
+    with pytest.raises(ValueError, match="contiguous"):
+        S.gather_strips(args[0], args[1].t().contiguous().t(), args[2])
+    code = "\n".join([
+        "import torch",
+        "from rssync_tpu_torch.ops import strips as S",
+        "img = torch.zeros((2, 96, 384), dtype=torch.uint8, device='cuda')",
+        "oyq = torch.full((2, 3), 7, dtype=torch.int32, device='cuda')  # max is 7",
+        "obx = torch.zeros((2, 3), dtype=torch.int32, device='cuda')",
+        "S.gather_strips(img, oyq, obx); torch.cuda.synchronize(); print('in bounds')",
+        "oyq[1, 2] = 8",
+        "S.gather_strips(img, oyq, obx); torch.cuda.synchronize(); print('out of bounds')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and "in bounds" in proc.stdout, proc.stderr
+    assert "out of bounds" not in proc.stdout and "CUDA" in proc.stderr, proc.stderr
+
+
+@pytest.mark.cuda
+def test_tracker_on_card_matches_cpu(cuda):
+    frames, kw = _grid_case()
+    S.reset_launch_counters()
+    got = T.lk_track_video(torch.as_tensor(frames, device=cuda), **kw)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["gather_strips"] > 0
+    want = T.lk_track_video(torch.as_tensor(frames), **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=TRACK_ATOL)
