@@ -42,12 +42,26 @@ Phases (any failure exits non-zero and prints no result line):
    within 0.1 ms;
 10. K3 against its plain version at every shape phase 6 launched it
     at, plus one float32 shape with frame indices: bit-equal, kernel,
-    plain and `index_select` times.
+    plain and `index_select` times;
+11. the probe paths of rssync_tpu_torch/experiments at the tracker's
+    operating point (241 frames of 2704x2028 stored 2816x2056, made
+    once from a numpy seed), each through its harness's `run` with its
+    kernel's counters zeroed just before and read just after: r4_u8pass
+    (E5, whole-clip passes), r4_u8pass2 (E6, 15 chunks of 17 frames),
+    r4_slice2 (E7, the 15 chunk copies from starts on the card),
+    r4_i16score (E8: parity, then PreSync at the engine's operating
+    point through K2 and through E8, whose best costs and delays must be
+    identical);
+12. E5-E8 against their plain versions at every shape their paths
+    launched them at (E8 also at the batched-Sync shape B=30, I=200),
+    each bit-equal; kernel, plain and library times and the bound; E8
+    also against K2's kernel, with K2's time beside its own.
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
 shape its main path launched it at, and `shapes` holds the measurements
-at every shape. The last line is {"ok": true, "device": {...}}.
+at every shape. `path` names the path that launched it. The last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -232,6 +246,108 @@ def compare_strips(np, torch, ST, shape, dev, seed, random_fidx, flush):
     return out
 
 
+def compare_convert(np, torch, CV, shape, dev, seed, flush):
+    """E5/E6 vs plain version at one launch shape; the plain version is
+    the library call `.to(torch.bfloat16)` itself."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+    got = CV.u8_to_bf16(x)
+    want = CV.u8_to_bf16_ref(x)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    n_bytes = 3 * x.numel()  # u8 read, bf16 written
+    bound_ms, bound_by = bound(n_bytes, x.numel())
+    plain_ms = cuda_ms(lambda: CV.u8_to_bf16_ref(x), torch, flush)
+    out = dict(
+        shape=list(shape), bit_equal=equal,
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=cuda_ms(lambda: CV.u8_to_bf16(x), torch, flush), plain_ms=plain_ms,
+        library_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+    )
+    print(f"# u8_to_bf16 {tuple(shape)}: bit-equal {equal}, kernel {out['ms']:.4f} ms, "
+          f"plain/.to(bfloat16) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({n_bytes / 1e6:.1f} MB)", flush=True)
+    check(equal, f"u8_to_bf16 differs from its plain version at {shape}")
+    return out
+
+
+def compare_copy(np, torch, BC, shape, dev, seed, flush, chunk):
+    """E7 vs plain version at one (T, Hp, Wp, n, dtype) launch shape: every
+    chunk start of the path bit-equal; times at the middle start, with
+    `index_select` and a host-start `narrow(...).clone()` beside them."""
+    T, Hp, Wp, n, dtype = shape
+    check(dtype == "torch.uint8", f"copy_block: unexpected dtype {dtype}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randint(0, 256, (T, Hp, Wp), dtype=torch.uint8, device=dev, generator=gen)
+    starts = [torch.tensor([s], dtype=torch.int32, device=dev)
+              for s in range(0, T - n + 1, chunk)]
+    errs = []
+    for st in starts:
+        got, want = BC.copy_block(frames, st, n), BC.copy_block_ref(frames, st, n)
+        errs.append(float((got.float() - want.float()).abs().max()))
+    torch.cuda.synchronize()
+    equal = max(errs) == 0.0
+    st = starts[len(starts) // 2]
+    s_host = int(st.item())
+    idx = st.long() + torch.arange(n, device=dev)
+    n_bytes = 2 * n * Hp * Wp + 4
+    bound_ms, bound_by = bound(n_bytes, 0)
+    out = dict(
+        T=T, Hp=Hp, Wp=Wp, n=n, dtype=dtype, starts=len(starts), bit_equal=equal,
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: BC.copy_block(frames, st, n), torch, flush, 20),
+        plain_ms=cuda_ms(lambda: BC.copy_block_ref(frames, st, n), torch, flush, 20),
+        library_ms=cuda_ms(lambda: torch.index_select(frames, 0, idx), torch, flush, 20),
+        narrow_clone_ms=cuda_ms(lambda: frames.narrow(0, s_host, n).clone(), torch, flush, 20),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+    )
+    print(f"# copy_block T={T} {Hp}x{Wp} n={n}: {len(starts)} starts bit-equal {equal}, kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, index_select "
+          f"{out['library_ms']:.4f} ms, narrow+clone {out['narrow_clone_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB)", flush=True)
+    check(equal, f"copy_block differs from its plain version at {shape}")
+    return out
+
+
+def compare_i16(np, torch, S, shape, dev, seed, flush):
+    """E8 vs its plain version and vs K2's kernel at one (B, F, N, I)
+    shape; K2 and E8 timed in turns (K2, E8, E8, K2)."""
+    B, F, N, I = shape
+    nP, v, counts = score_inputs(np, torch, seed, B, F, N, I, dev)
+    got = S.score_quartile_i16(nP, v, counts)
+    want = S.score_quartile_i16_ref(nP, v, counts)
+    k2 = S.score_quartile_batched(nP, v, counts)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"score_quartile_i16: bad output {tuple(got.shape)}")
+    equal, equal_k2 = bool(torch.equal(got, want)), bool(torch.equal(got, k2))
+    n_bytes = 4 * (nP.numel() + v.numel() + counts.numel() + got.numel())
+    n_ops = SCORE_OPS * I * int(torch.clamp(counts.long(), max=N).sum())
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+
+    def e8():
+        S.score_quartile_i16(nP, v, counts)
+
+    def k2_call():
+        S.score_quartile_batched(nP, v, counts)
+
+    k2_a, e8_a = cuda_ms(k2_call, torch, flush), cuda_ms(e8, torch, flush)
+    e8_b, k2_b = cuda_ms(e8, torch, flush), cuda_ms(k2_call, torch, flush)
+    out = dict(
+        B=B, F=F, N=N, I=I, bit_equal=equal, bit_equal_k2=equal_k2,
+        max_abs_err=float((got - want).abs().max()),
+        ms=(e8_a + e8_b) / 2, k2_ms=(k2_a + k2_b) / 2,
+        plain_ms=cuda_ms(lambda: S.score_quartile_i16_ref(nP, v, counts), torch, flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )
+    print(f"# score_quartile_i16 B={B} F={F} N={N} I={I}: bit-equal to plain {equal}, to K2 "
+          f"{equal_k2}; E8 {out['ms']:.4f} ms ({e8_a:.4f}, {e8_b:.4f}), K2 {out['k2_ms']:.4f} "
+          f"ms ({k2_a:.4f}, {k2_b:.4f}), plain {out['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    check(equal and equal_k2, f"score_quartile_i16 differs at {shape}")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -243,8 +359,12 @@ def main() -> None:
         import numpy as np
 
         from rssync_tpu_torch import create_sync_problem
+        from rssync_tpu_torch.experiments import r4_i16score, r4_slice2, r4_u8pass, r4_u8pass2
+        from rssync_tpu_torch.experiments._harness import FULL, make_frames
         from rssync_tpu_torch.frontend import tracking as TR
         from rssync_tpu_torch.ops import _kernels
+        from rssync_tpu_torch.ops import blockcopy as BC
+        from rssync_tpu_torch.ops import convert as CV
         from rssync_tpu_torch.ops import score as S
         from rssync_tpu_torch.ops import strips as ST
         from rssync_tpu_torch.pipeline.recipe import (
@@ -313,8 +433,9 @@ def main() -> None:
     grid, costs = sp.debug_pre_sync(0.0, first, first + window, radius_s, 200)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t1
-    launches = dict(S.LAUNCHES)
-    shapes = {k: sorted(v) for k, v in S.LAUNCH_SHAPES.items()}
+    engine_kernels = ("score_quartile", "score_quartile_batched")
+    launches = {k: S.LAUNCHES[k] for k in engine_kernels}
+    shapes = {k: sorted(S.LAUNCH_SHAPES[k]) for k in engine_kernels}
     print(f"# engine main path (run_batched + one window's pre_sync/4x sync/debug_pre_sync, "
           f"builds windows): {t_main:.2f} s, launches {launches}, "
           f"launch shapes (B, F, N, I) {shapes}", flush=True)
@@ -514,22 +635,88 @@ def main() -> None:
                                      99, True, flush))
     phase("10 (K3 vs plain)", t0)
 
-    replaces = {"score_quartile": "rssync_tpu/ops/pallas_score.py:139",
-                "score_quartile_batched": "rssync_tpu/ops/pallas_score.py:230",
-                "gather_strips": "rssync_tpu/frontend/tracking.py:434"}
-    sources = {"score_quartile": "rssync_tpu_torch/csrc/score_quartile.cu",
-               "score_quartile_batched": "rssync_tpu_torch/csrc/score_quartile.cu",
-               "gather_strips": "rssync_tpu_torch/csrc/gather_strips.cu"}
-    main_launches = dict(launches, **k3_launches)
-    rows_of = dict(compared, gather_strips=strip_rows)
-    main_rows = dict(compared, gather_strips=strip_rows[: len(k3_shapes)])
+    # -- phase 11: the probe paths, each with its kernel's counters zeroed
+    # just before and read just after ----------------------------------------
+    t0 = time.perf_counter()
+    probe = make_frames(dev)
+    torch.cuda.synchronize()
+    print(f"# probe frames {tuple(probe.shape)} u8 from a numpy seed, padded on the host: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    probe_paths = {}
+    for key, harness, counters, kernel in (
+            ("e5", r4_u8pass, CV, "u8_to_bf16"), ("e6", r4_u8pass2, CV, "u8_to_bf16"),
+            ("e7", r4_slice2, BC, "copy_block")):
+        counters.reset_launch_counters()
+        result = harness.run(device=dev, frames=probe)
+        torch.cuda.synchronize()
+        probe_paths[key] = (counters.LAUNCHES[kernel], sorted(counters.LAUNCH_SHAPES[kernel]),
+                            result)
+        print(f"# {harness.__name__}: launches {dict(counters.LAUNCHES)}, launch shapes "
+              f"{probe_paths[key][1]}", flush=True)
+        check(probe_paths[key][0] > 0, f"kernel {kernel} was not launched on {harness.__name__}")
+    conv = probe_paths["e5"][2], probe_paths["e6"][2]
+    check(conv[0]["kernel_conv"]["value"] == conv[0]["conv_mat"]["value"]
+          and conv[1]["kernel_conv"]["value"] == conv[1]["conv"]["value"],
+          "kernel_conv disagrees with the .to(bfloat16) pass")
+    sl = probe_paths["e7"][2]
+    check(sl["kernel_sum"]["value"] == sl["slice_sum"]["value"],
+          "kernel_sum disagrees with slice_sum")
+    del probe
+    S.reset_launch_counters()
+    i16_run = r4_i16score.run(device=dev)
+    torch.cuda.synchronize()
+    e8_launches = S.LAUNCHES["score_quartile_i16"]
+    e8_shapes = sorted(S.LAUNCH_SHAPES["score_quartile_i16"])
+    print(f"# r4_i16score: launches {dict(S.LAUNCHES)}, E8 launch shapes {e8_shapes}; PreSync "
+          f"K2 {i16_run['k2']['ms']:.4f} ms, E8 {i16_run['i16']['ms']:.4f} ms; best delays "
+          f"{i16_run['i16']['delay'].tolist()[:4]}... ({card})", flush=True)
+    check(e8_launches > 0, "kernel score_quartile_i16 was not launched on r4_i16score")
+    check(i16_run["parity_equal"] and i16_run["identical"],
+          "PreSync through E8 differs from PreSync through K2")
+    phase("11 (probe paths)", t0)
+
+    # -- phase 12: E5-E8 against their plain versions ----------------------
+    t0 = time.perf_counter()
+    e5_rows = [compare_convert(np, torch, CV, sh, dev, 20 + i, flush)
+               for i, sh in enumerate(probe_paths["e5"][1])]
+    e6_rows = [compare_convert(np, torch, CV, sh, dev, 30 + i, flush)
+               for i, sh in enumerate(probe_paths["e6"][1])]
+    e7_rows = [compare_copy(np, torch, BC, sh, dev, 40 + i, flush, FULL.chunk)
+               for i, sh in enumerate(probe_paths["e7"][1])]
+    sync_shape = (30, 60, 130, 200)  # batched Sync's K2 launch, E8 on no path there
+    e8_rows = [compare_i16(np, torch, S, sh, dev, 50 + i, flush)
+               for i, sh in enumerate(e8_shapes + [sync_shape] * (sync_shape not in e8_shapes))]
+    phase("12 (E5-E8 vs plain)", t0)
+
+    csrc = "rssync_tpu_torch/csrc/"
+    h = "rssync_tpu_torch.experiments."
+    engine, tracker = "engine (run_batched + SyncProblem)", "tracker (lk_track_video_chunked)"
+    # (name, TPU kernel, source, path, launches on it, rows of its shapes, all rows)
+    entries = [
+        ("score_quartile", "rssync_tpu/ops/pallas_score.py:139", csrc + "score_quartile.cu",
+         engine, launches["score_quartile"], compared["score_quartile"],
+         compared["score_quartile"]),
+        ("score_quartile_batched", "rssync_tpu/ops/pallas_score.py:230",
+         csrc + "score_quartile.cu", engine, launches["score_quartile_batched"],
+         compared["score_quartile_batched"], compared["score_quartile_batched"]),
+        ("gather_strips", "rssync_tpu/frontend/tracking.py:434", csrc + "gather_strips.cu",
+         tracker, k3_launches["gather_strips"], strip_rows[: len(k3_shapes)], strip_rows),
+        ("u8_to_bf16", "experiments/r4_u8pass.py:54", csrc + "convert_u8.cu", h + "r4_u8pass",
+         probe_paths["e5"][0], e5_rows, e5_rows),
+        ("u8_to_bf16", "experiments/r4_u8pass2.py:61", csrc + "convert_u8.cu",
+         h + "r4_u8pass2", probe_paths["e6"][0], e6_rows, e6_rows),
+        ("copy_block", "experiments/r4_slice2.py:65", csrc + "copy_block.cu", h + "r4_slice2",
+         probe_paths["e7"][0], e7_rows, e7_rows),
+        ("score_quartile_i16", "experiments/r4_i16score.py:86", csrc + "score_quartile.cu",
+         h + "r4_i16score", e8_launches, e8_rows[: len(e8_shapes)], e8_rows),
+    ]
     kernels = []
-    for name, rows in rows_of.items():
+    for name, replaces, source, path, n, main_rows, rows in entries:
         # the times stated are those of the main path's heaviest launch shape
-        heavy = max(main_rows[name], key=lambda r: r["bound_ms"])
+        heavy = max(main_rows, key=lambda r: r["bound_ms"])
         kernels.append(dict(
-            name=name, route="cuda", source=sources[name], replaces=replaces[name],
-            launches=main_launches[name], max_abs_err=max(r["max_abs_err"] for r in rows),
+            name=name, route="cuda", source=source, replaces=replaces, path=path,
+            launches=n, max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=heavy["ms"], plain_ms=heavy["plain_ms"], bound_ms=heavy["bound_ms"],
             bound_by=heavy["bound_by"], library_ms=heavy["library_ms"], shapes=rows,
         ))

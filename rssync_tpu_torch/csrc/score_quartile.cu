@@ -15,6 +15,21 @@
 //   >= k + 1, else [mid, hi].
 //   out[b, f, i] = hi
 //
+// E8 (kI16 = true) replaces experiments/r4_i16score.py score_i16 (body
+// _kernel_i16): the same bracket with the compare buffer held as the
+// 16-bit bf16 bit patterns of the quantized residuals, N shorts a warp
+// where K1/K2 keep N floats, compared as int16. For +0, positive finite
+// values and +inf the bf16 bits viewed as int16 are non-negative and
+// ordered like the values, and here every compared value is one of
+// those: s^2 >= +0, invalid slots are +inf (0x7f80) and mid >= 0. So on
+// finite inputs E8 is bit-equal to K1/K2. A NaN would order differently
+// from K1/K2's float compare. The count reads two int16 slots per
+// 32-bit word and compares both at once (SWAR): with both halves of w
+// and m in [0, 0x7fff], bit 15 of each half of
+// ((m | 0x80008000) - w) is set iff that half of w <= that half of m,
+// and no borrow crosses halves. An odd N gets one pad slot 0x7fff,
+// above every compared mid.
+//
 // Layouts (contiguous, float32 unless noted):
 //   nP (B, 3, F, N), v (B, 3, F, I), counts (B, F) int32, out (B, F, I).
 //
@@ -53,6 +68,15 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// bf16 bits of x (round to nearest even)
+__device__ __forceinline__ unsigned int bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// 16-bit slots of the E8 compare buffer: N rounded up to even
+__host__ __device__ __forceinline__ int i16_slots(int N) { return N + (N & 1); }
+
+template <bool kI16>
 __global__ void score_quartile_kernel(
     const float* __restrict__ nP, const float* __restrict__ v,
     const int* __restrict__ counts, float* __restrict__ out,
@@ -68,8 +92,13 @@ __global__ void score_quartile_kernel(
   float* n0 = smem;
   float* n1 = n0 + N;
   float* n2 = n1 + N;
-  float* buf = n2 + N + warp * (P + N);  // P tree slots, then N quantized
+  // K1/K2: per warp P tree slots, then N quantized floats. E8: every
+  // warp's P tree slots, then every warp's i16_slots(N) bf16 patterns.
+  float* buf = n2 + N + warp * (kI16 ? P : P + N);
   float* q = buf + P;
+  const int Nq = i16_slots(N);
+  unsigned short* q16 =
+      reinterpret_cast<unsigned short*>(n2 + N + warps * P) + warp * Nq;
 
   const size_t stride_c = static_cast<size_t>(F) * N;
   const float* src = nP + static_cast<size_t>(b) * 3 * stride_c
@@ -104,7 +133,11 @@ __global__ void score_quartile_kernel(
         s2 = __fmul_rn(s, s);
       }
       buf[n] = s2;
-      if (n < N) q[n] = n < valid_n ? bf16_round(s2) : __int_as_float(0x7f800000);
+      if constexpr (kI16) {
+        if (n < Nq) q16[n] = n < valid_n ? bf16_bits(s2) : (n < N ? 0x7f80u : 0x7fffu);
+      } else {
+        if (n < N) q[n] = n < valid_n ? bf16_round(s2) : __int_as_float(0x7f800000);
+      }
       mx = fmaxf(mx, s2);
     }
     for (int o = kWarp / 2; o > 0; o /= 2)
@@ -121,9 +154,15 @@ __global__ void score_quartile_kernel(
 
     for (int r = 0; r < kBisectRounds; ++r) {
       const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-      const float midq = bf16_round(mid);
       int c = 0;
-      for (int n = lane; n < N; n += kWarp) c += q[n] <= midq ? 1 : 0;
+      if constexpr (kI16) {
+        const unsigned int* w = reinterpret_cast<const unsigned int*>(q16);
+        const unsigned int m = bf16_bits(mid) * 0x10001u | 0x80008000u;
+        for (int k = lane; k < Nq / 2; k += kWarp) c += __popc((m - w[k]) & 0x80008000u);
+      } else {
+        const float midq = bf16_round(mid);
+        for (int n = lane; n < N; n += kWarp) c += q[n] <= midq ? 1 : 0;
+      }
       for (int o = kWarp / 2; o > 0; o /= 2)
         c += __shfl_xor_sync(0xffffffffu, c, o);
       if (c >= k1) hi = mid; else lo = mid;
@@ -150,23 +189,53 @@ size_t score_quartile_smem_bytes(int N, int warps) {
                           + static_cast<size_t>(warps) * (P + N));
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
+// The same for E8: N 16-bit slots (rounded up to even) a warp in place
+// of N floats.
+size_t score_quartile_i16_smem_bytes(int N, int warps) {
+  const int P = next_pow2(N > kWarp ? N : kWarp);
+  return sizeof(float) * (3 * static_cast<size_t>(N) + static_cast<size_t>(warps) * P)
+         + sizeof(unsigned short) * static_cast<size_t>(warps) * i16_slots(N);
+}
+
+}  // extern "C"
+
+namespace {
+
+template <bool kI16>
+int launch(const void* nP, const void* v, const void* counts, void* out, int B,
+           int F, int N, int I, int warps, void* stream) {
+  const int P = next_pow2(N > kWarp ? N : kWarp);
+  const size_t smem = kI16 ? score_quartile_i16_smem_bytes(N, warps)
+                           : score_quartile_smem_bytes(N, warps);
+  cudaError_t err = cudaFuncSetAttribute(
+      score_quartile_kernel<kI16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned int rows = static_cast<unsigned int>(B) * F;
+  score_quartile_kernel<kI16><<<rows, warps * kWarp, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(nP), static_cast<const float*>(v),
+      static_cast<const int*>(counts), static_cast<float*>(out), F, N, I, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K1/K2 on `stream` and returns cudaGetLastError() (0 on
 // success). Allocates nothing; the caller owns every buffer.
 int score_quartile_launch(const void* nP, const void* v, const void* counts,
                           void* out, int B, int F, int N, int I, int warps,
                           void* stream) {
-  const int P = next_pow2(N > kWarp ? N : kWarp);
-  const size_t smem = score_quartile_smem_bytes(N, warps);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_quartile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned int rows = static_cast<unsigned int>(B) * F;
-  score_quartile_kernel<<<rows, warps * kWarp, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(nP), static_cast<const float*>(v),
-      static_cast<const int*>(counts), static_cast<float*>(out), F, N, I, P);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(nP, v, counts, out, B, F, N, I, warps, stream);
+}
+
+// Launches E8 the same way.
+int score_quartile_i16_launch(const void* nP, const void* v, const void* counts,
+                              void* out, int B, int F, int N, int I, int warps,
+                              void* stream) {
+  return launch<true>(nP, v, counts, out, B, F, N, I, warps, stream);
 }
 
 const char* score_quartile_error_string(int code) {

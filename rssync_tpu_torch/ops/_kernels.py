@@ -27,7 +27,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("score_quartile.cu", "gather_strips.cu")
+SOURCES = ("score_quartile.cu", "gather_strips.cu", "convert_u8.cu", "copy_block.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -111,8 +111,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.score_quartile_launch.restype = ctypes.c_int
-        lib.score_quartile_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.score_quartile_smem_bytes.restype = ctypes.c_size_t
+        lib.score_quartile_i16_launch.argtypes = lib.score_quartile_launch.argtypes
+        lib.score_quartile_i16_launch.restype = ctypes.c_int
+        for fn in (lib.score_quartile_smem_bytes, lib.score_quartile_i16_smem_bytes):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_size_t
         lib.score_quartile_error_string.argtypes = [ctypes.c_int]
         lib.score_quartile_error_string.restype = ctypes.c_char_p
         lib.gather_strips_launch.argtypes = [
@@ -123,5 +126,18 @@ def load() -> ctypes.CDLL:
         lib.gather_strips_launch.restype = ctypes.c_int
         lib.gather_strips_error_string.argtypes = [ctypes.c_int]
         lib.gather_strips_error_string.restype = ctypes.c_char_p
+        lib.convert_u8_bf16_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.convert_u8_bf16_launch.restype = ctypes.c_int
+        lib.copy_block_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.copy_block_launch.restype = ctypes.c_int
+        for fn in (lib.convert_u8_bf16_error_string, lib.copy_block_error_string):
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_char_p
         _lib = lib
         return lib

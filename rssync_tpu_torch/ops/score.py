@@ -11,6 +11,10 @@ Two entry points share one CUDA kernel (csrc/score_quartile.cu):
 `score_quartile` for one (3, F, N) problem and `score_quartile_batched`
 for a leading batch. On CPU tensors they compute the plain PyTorch
 version (`*_ref`); on CUDA tensors they launch the kernel or raise.
+`score_quartile_i16` (E8, experiments/r4_i16score.py) is the batched
+form with the compare buffer held as bf16 bit patterns compared as
+int16; it is on no main path and bit-equal to the others on finite
+inputs.
 
 The plain version and the kernel agree bit for bit: the mean is summed
 in one fixed pairwise order (`tree_sum`) by both, every multiply and
@@ -31,9 +35,10 @@ BISECT_ROUNDS = 12
 MARKOV_C = 2.03125
 
 #: kernel launches per wrapper, counted where each wrapper launches
-LAUNCHES = {"score_quartile": 0, "score_quartile_batched": 0}
+LAUNCHES = {"score_quartile": 0, "score_quartile_batched": 0, "score_quartile_i16": 0}
 #: the (B, F, N, I) shapes each wrapper launched its kernel at
-LAUNCH_SHAPES = {"score_quartile": set(), "score_quartile_batched": set()}
+LAUNCH_SHAPES = {"score_quartile": set(), "score_quartile_batched": set(),
+                 "score_quartile_i16": set()}
 
 #: dynamic shared memory one block may use on Hopper
 _MAX_SMEM = 232_448
@@ -61,11 +66,10 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def score_quartile_batched_ref(
-    nP: torch.Tensor, v: torch.Tensor, counts: torch.Tensor
-) -> torch.Tensor:
-    """Plain PyTorch version. nP (..., 3, F, N), v (..., 3, F, I),
-    counts (..., F) int -> (..., F, I) float32."""
+def _bracket_ref(nP: torch.Tensor, v: torch.Tensor, counts: torch.Tensor,
+                 i16: bool) -> torch.Tensor:
+    """The plain bracket; with `i16` every compare is of the bf16 bit
+    patterns viewed as int16."""
     N = nP.shape[-1]
     n0, n1, n2 = (t[..., None, :] for t in nP.unbind(-3))  # (..., F, 1, N)
     v0, v1, v2 = (t[..., None] for t in v.unbind(-3))      # (..., F, I, 1)
@@ -74,19 +78,41 @@ def score_quartile_batched_ref(
     counts = counts.to(torch.int64)
     valid = torch.arange(N, device=nP.device) < counts[..., None, None]
     k1 = (torch.clamp(counts, min=1) // 4 + 1)[..., None]  # (..., F, 1)
-    res2m = torch.where(valid, res2, torch.inf).to(torch.bfloat16).float()
+    res2m = torch.where(valid, res2, torch.inf).to(torch.bfloat16)
+    res2m = res2m.view(torch.int16) if i16 else res2m.float()
     masked = torch.where(valid, res2, 0.0)
     mu = tree_sum(masked) / torch.clamp(counts, min=1)[..., None].to(res2.dtype)
     hi = torch.minimum(masked.amax(dim=-1), MARKOV_C * mu)
     lo = torch.zeros_like(hi)
     for _ in range(BISECT_ROUNDS):
         mid = 0.5 * (lo + hi)
-        midq = mid.to(torch.bfloat16).float()
+        midq = mid.to(torch.bfloat16)
+        midq = midq.view(torch.int16) if i16 else midq.float()
         c = torch.sum(res2m <= midq[..., None], dim=-1)
         ge = c >= k1
         lo = torch.where(ge, lo, mid)
         hi = torch.where(ge, mid, hi)
     return hi
+
+
+def score_quartile_batched_ref(
+    nP: torch.Tensor, v: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version. nP (..., 3, F, N), v (..., 3, F, I),
+    counts (..., F) int -> (..., F, I) float32."""
+    return _bracket_ref(nP, v, counts, i16=False)
+
+
+def score_quartile_i16_ref(
+    nP: torch.Tensor, v: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of `score_quartile_i16`: the bracket with each
+    compare bf16(x).view(int16) <= bf16(mid).view(int16). Every
+    compared value is +0, positive finite or +inf, whose bits order as
+    the values do, so on finite inputs it equals
+    `score_quartile_batched_ref` bit for bit; a NaN would order
+    differently."""
+    return _bracket_ref(nP, v, counts, i16=True)
 
 
 def score_quartile_ref(
@@ -141,14 +167,17 @@ def _launch(nP, v, counts, name: str) -> torch.Tensor:
     if B * F == 0 or I == 0:
         return out
     lib = _kernels.load()
+    i16 = name == "score_quartile_i16"
+    smem_bytes = lib.score_quartile_i16_smem_bytes if i16 else lib.score_quartile_smem_bytes
+    launch = lib.score_quartile_i16_launch if i16 else lib.score_quartile_launch
     warps = 4 if I <= 64 else 8
-    while warps > 1 and lib.score_quartile_smem_bytes(N, warps) > _MAX_SMEM:
+    while warps > 1 and smem_bytes(N, warps) > _MAX_SMEM:
         warps //= 2
-    if lib.score_quartile_smem_bytes(N, warps) > _MAX_SMEM:
+    if smem_bytes(N, warps) > _MAX_SMEM:
         raise ValueError(f"score_quartile: N={N} features exceed shared memory")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.score_quartile_launch(
+        rc = launch(
             nP.data_ptr(), v.data_ptr(), counts.data_ptr(), out.data_ptr(),
             B, F, N, I, warps, stream,
         )
@@ -184,3 +213,16 @@ def score_quartile_batched(
     if nP.device.type == "cpu":
         return score_quartile_batched_ref(nP, v, counts)
     return _launch(nP, v, counts, "score_quartile_batched")
+
+
+def score_quartile_i16(
+    nP: torch.Tensor, v: torch.Tensor, counts: torch.Tensor
+) -> torch.Tensor:
+    """`score_quartile_batched` with the compare buffer held as bf16 bit
+    patterns and compared as int16: the same shapes and, on finite
+    inputs, the same result. Replaces experiments/r4_i16score.py
+    score_i16."""
+    _check(nP, v, counts, 1)
+    if nP.device.type == "cpu":
+        return score_quartile_i16_ref(nP, v, counts)
+    return _launch(nP, v, counts, "score_quartile_i16")
