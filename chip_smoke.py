@@ -55,7 +55,25 @@ Phases (any failure exits non-zero and prints no result line):
 12. E5-E8 against their plain versions at every shape their paths
     launched them at (E8 also at the batched-Sync shape B=30, I=200),
     each bit-equal; kernel, plain and library times and the bound; E8
-    also against K2's kernel, with K2's time beside its own.
+    also against K2's kernel, with K2's time beside its own;
+13. the patch paths of rssync_tpu_torch/experiments, each with its
+    kernel's counters zeroed just before and read just after:
+    pallas_patch.extract_patches (E1) at mb_extract's 2028x2704 image
+    (u8, bf16, f32, made on the card from a numpy seed) and its 130
+    origins through force="kernel" and force="gather", equal since no
+    clamp moves those origins; r3_dma (E2, K3's kernel on 16 unpadded
+    2028x2816 u8 frames: its strips equal the row-block gather);
+    mb_extract (E3, 12 variants) and mb_extract2 (E4, the floor, the N
+    and size sweeps, the sequential loop, the kernel at nbuf 2/8/16).
+    Every variant of mb_extract, and every one of mb_extract2 that
+    extracts the main 130 x 40 x 40 set, must give the same float64
+    sum, and E4's own check of patches 0, 64, 129 must hold;
+14. extract_patches against its plain version at every shape phase 13
+    launched it at (each dtype, each patches_per_block), plus one odd
+    shape (37x131, 9 patches of 7, bf16, 3 a block), origins with the
+    image's corners: bit-equal; kernel, plain and advanced-index gather
+    times, the bound, and the kernel's time back to back; then K3 at
+    E2's shape through the phase-10 comparison.
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
@@ -348,6 +366,62 @@ def compare_i16(np, torch, S, shape, dev, seed, flush):
     return out
 
 
+def compare_patches(np, torch, PT, shape, dev, seed, flush):
+    """extract_patches vs its plain version at one (H, W, N, size,
+    dtype, patches_per_block) launch shape, origins in bounds from a
+    numpy seed with the image's four corners first; the advanced-index
+    gather (in the image dtype) as the library call, and the kernel's
+    time back to back (200 launches in one event pair, L2 warm)."""
+    H, W, N, size, dtype, ppb = shape
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == "torch.uint8":
+        img = torch.randint(0, 256, (H, W), dtype=torch.uint8, device=dev, generator=gen)
+    else:
+        img = (torch.randn((H, W), device=dev, generator=gen) * 50).to(getattr(torch, dtype[6:]))
+    o = np.stack([rng.integers(0, W - size + 1, N), rng.integers(0, H - size + 1, N)], axis=1)
+    corners = np.asarray([[0, 0], [W - size, 0], [0, H - size], [W - size, H - size]])
+    o[: min(N, 4)] = corners[: min(N, 4)]
+    o = torch.tensor(o, dtype=torch.int32, device=dev)
+    got = PT.extract_patches(img, o, size, patches_per_block=ppb)
+    want = PT.extract_patches_ref(img, o, size)
+    ar = torch.arange(size, device=dev)
+    ri = (o[:, 1].long()[:, None] + ar)[:, :, None]
+    ci = (o[:, 0].long()[:, None] + ar)[:, None, :]
+    lib = img[ri, ci]
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want)) and bool(torch.equal(lib.float(), want))
+    # bytes: each image pixel the patches cover, read once; the patches
+    # written as float32; the origins read
+    covered = int(torch.unique(ri * W + ci).numel()) * img.element_size()
+    n_bytes = covered + got.numel() * 4 + o.numel() * 4
+    bound_ms, bound_by = bound(n_bytes, 0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(200):
+        PT.extract_patches(img, o, size, patches_per_block=ppb)
+    end.record()
+    torch.cuda.synchronize()
+    out = dict(
+        H=H, W=W, N=N, size=size, dtype=dtype, patches_per_block=ppb, bit_equal=equal,
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: PT.extract_patches(img, o, size, patches_per_block=ppb), torch,
+                   flush, 20),
+        plain_ms=cuda_ms(lambda: PT.extract_patches_ref(img, o, size), torch, flush, 20),
+        library_ms=cuda_ms(lambda: img[ri, ci], torch, flush, 20),
+        back_to_back_ms=start.elapsed_time(end) / 200,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+    )
+    print(f"# extract_patches {H}x{W} N={N} size={size} {dtype} per_block={ppb}: bit-equal "
+          f"{equal}, kernel {out['ms']:.4f} ms (one launch behind a flush: launch latency at "
+          f"this size), back to back {out['back_to_back_ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, advanced-index gather {out['library_ms']:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({n_bytes / 1e6:.3f} MB)", flush=True)
+    check(equal, f"extract_patches differs from its plain version at {shape}")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -359,12 +433,22 @@ def main() -> None:
         import numpy as np
 
         from rssync_tpu_torch import create_sync_problem
-        from rssync_tpu_torch.experiments import r4_i16score, r4_slice2, r4_u8pass, r4_u8pass2
+        from rssync_tpu_torch.experiments import (
+            mb_extract,
+            mb_extract2,
+            pallas_patch,
+            r3_dma,
+            r4_i16score,
+            r4_slice2,
+            r4_u8pass,
+            r4_u8pass2,
+        )
         from rssync_tpu_torch.experiments._harness import FULL, make_frames
         from rssync_tpu_torch.frontend import tracking as TR
         from rssync_tpu_torch.ops import _kernels
         from rssync_tpu_torch.ops import blockcopy as BC
         from rssync_tpu_torch.ops import convert as CV
+        from rssync_tpu_torch.ops import patches as PT
         from rssync_tpu_torch.ops import score as S
         from rssync_tpu_torch.ops import strips as ST
         from rssync_tpu_torch.pipeline.recipe import (
@@ -688,9 +772,85 @@ def main() -> None:
                for i, sh in enumerate(e8_shapes + [sync_shape] * (sync_shape not in e8_shapes))]
     phase("12 (E5-E8 vs plain)", t0)
 
+    # -- phase 13: the patch paths, each with its kernel's counters zeroed
+    # just before and read just after ----------------------------------------
+    t0 = time.perf_counter()
+    p3 = mb_extract.FULL
+    e3_img = mb_extract.make_image(dev)
+    e3_origins = mb_extract.make_origins(dev, p3.points)
+    patch_paths = {}
+
+    def read_patch_path(key, name):
+        torch.cuda.synchronize()
+        patch_paths[key] = (PT.LAUNCHES["extract_patches"],
+                            sorted(PT.LAUNCH_SHAPES["extract_patches"]))
+        print(f"# {name}: launches {dict(PT.LAUNCHES)}, launch shapes (H, W, N, size, dtype, "
+              f"per_block) {patch_paths[key][1]}", flush=True)
+        check(patch_paths[key][0] > 0, f"kernel extract_patches was not launched on {name}")
+
+    PT.reset_launch_counters()
+    routes_equal = []
+    for dt in (torch.uint8, torch.bfloat16, torch.float32):
+        img = e3_img.to(dt)
+        rows, cols, ra = pallas_patch.aligned_region(dt, p3.size)
+        unmoved = torch.equal(PT.clamp_aligned(e3_origins, *img.shape, rows, cols, ra),
+                              e3_origins)
+        kern = pallas_patch.extract_patches(img, e3_origins, p3.size, force="kernel")
+        gath = pallas_patch.extract_patches(img, e3_origins, p3.size, force="gather")
+        routes_equal.append(bool(unmoved) and bool(torch.equal(kern, gath)))
+    read_patch_path("e1", pallas_patch.__name__)
+    print(f"# pallas_patch kernel route == gather route (u8, bf16, f32): {routes_equal}",
+          flush=True)
+    check(all(routes_equal), "pallas_patch: the kernel and gather routes disagree")
+    del e3_img, e3_origins
+
+    ST.reset_launch_counters()
+    e2_run = r3_dma.run(device=dev)
+    torch.cuda.synchronize()
+    e2_launches = ST.LAUNCHES["gather_strips"]
+    e2_shapes = sorted(ST.LAUNCH_SHAPES["gather_strips"])
+    print(f"# r3_dma: launches {dict(ST.LAUNCHES)}, launch shapes (T, Hp, Wp, B, N, dtype) "
+          f"{e2_shapes} ({card})", flush=True)
+    check(e2_launches > 0, "kernel gather_strips was not launched on r3_dma")
+    check(e2_run["match"], "r3_dma: the strips differ from the row-block gather")
+
+    PT.reset_launch_counters()
+    e3_run = mb_extract.run(device=dev)
+    read_patch_path("e3", mb_extract.__name__)
+    e3_values = {r["value"] for r in e3_run.values()}
+    check(len(e3_values) == 1, f"mb_extract: the variants' sums differ {sorted(e3_values)}")
+
+    PT.reset_launch_counters()
+    e4_run = mb_extract2.run(device=dev)
+    read_patch_path("e4", mb_extract2.__name__)
+    e4_same = {n: r["value"] for n, r in e4_run.items() if r["patches"] == (p3.points, p3.size)}
+    print(f"# mb_extract2: the {len(e4_same)} variants of the {p3.points} x {p3.size} x "
+          f"{p3.size} set sum to {sorted(set(e4_same.values()))} ({card})", flush=True)
+    check(len(e4_same) == 5 and len(set(e4_same.values())) == 1,
+          f"mb_extract2: the variants' sums differ {e4_same}")
+    check(all(e4_run[f"kernel_nbuf{b}"]["correct"] for b in mb_extract2.NBUF),
+          "mb_extract2: E4's patch check failed")
+    phase("13 (patch paths)", t0)
+
+    # -- phase 14: extract_patches and K3 against their plain versions at
+    # the shapes the patch paths launched them at ----------------------------
+    t0 = time.perf_counter()
+    patch_shapes = sorted(set().union(*(set(v[1]) for v in patch_paths.values())))
+    patch_rows = {sh: compare_patches(np, torch, PT, sh, dev, 60 + i, flush)
+                  for i, sh in enumerate(patch_shapes)}
+    odd_row = compare_patches(np, torch, PT, (37, 131, 9, 7, "torch.bfloat16", 3), dev, 69, flush)
+    e2_rows = [compare_strips(np, torch, ST, sh, dev, 70 + i, False, flush)
+               for i, sh in enumerate(e2_shapes)]
+    phase("14 (patch kernels vs plain)", t0)
+
     csrc = "rssync_tpu_torch/csrc/"
     h = "rssync_tpu_torch.experiments."
     engine, tracker = "engine (run_batched + SyncProblem)", "tracker (lk_track_video_chunked)"
+    patch_src = csrc + "extract_patches.cu"
+
+    def patch_rows_of(key):
+        return [patch_rows[sh] for sh in patch_paths[key][1]]
+
     # (name, TPU kernel, source, path, launches on it, rows of its shapes, all rows)
     entries = [
         ("score_quartile", "rssync_tpu/ops/pallas_score.py:139", csrc + "score_quartile.cu",
@@ -709,6 +869,14 @@ def main() -> None:
          probe_paths["e7"][0], e7_rows, e7_rows),
         ("score_quartile_i16", "experiments/r4_i16score.py:86", csrc + "score_quartile.cu",
          h + "r4_i16score", e8_launches, e8_rows[: len(e8_shapes)], e8_rows),
+        ("extract_patches", "experiments/pallas_patch.py:100", patch_src, h + "pallas_patch",
+         patch_paths["e1"][0], patch_rows_of("e1"), patch_rows_of("e1") + [odd_row]),
+        ("gather_strips", "experiments/r3_dma.py:66", csrc + "gather_strips.cu", h + "r3_dma",
+         e2_launches, e2_rows, e2_rows),
+        ("extract_patches", "experiments/mb_extract.py:164", patch_src, h + "mb_extract",
+         patch_paths["e3"][0], patch_rows_of("e3"), patch_rows_of("e3")),
+        ("extract_patches", "experiments/mb_extract2.py:93", patch_src, h + "mb_extract2",
+         patch_paths["e4"][0], patch_rows_of("e4"), patch_rows_of("e4")),
     ]
     kernels = []
     for name, replaces, source, path, n, main_rows, rows in entries:

@@ -88,6 +88,24 @@ def line(name: str, ms: float | None, n_bytes: int | None, pairs: int) -> str:
     return f"{name:12s} {ms:9.4f} ms {rate}  ({ms / pairs:.4f} ms/pair)"
 
 
+def per_call(ms: float | None, reps: int, points: int) -> tuple[float | None, float | None]:
+    """(us per call, ns per point) of a loop of `reps` calls over
+    `points` points that took `ms`; (None, None) untimed."""
+    if ms is None:
+        return None, None
+    us = 1e3 * ms / reps
+    return us, 1e3 * us / points
+
+
+def rep_line(name: str, ms: float | None, reps: int, points: int) -> str:
+    """One report line of a loop of `reps` calls timed as a whole: us
+    per call and ns per point."""
+    us, ns = per_call(ms, reps, points)
+    if us is None:
+        return f"{name:28s} not timed (cpu)"
+    return f"{name:28s} {us:10.3f} us/call ({ns:9.2f} ns/point; {reps} calls in {ms:.4f} ms)"
+
+
 def select(cases: dict, variants) -> list[str]:
     """The case names to run, in their order; raise on an unknown one."""
     if not variants:

@@ -27,7 +27,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("score_quartile.cu", "gather_strips.cu", "convert_u8.cu", "copy_block.cu")
+SOURCES = (
+    "score_quartile.cu", "gather_strips.cu", "convert_u8.cu", "copy_block.cu",
+    "extract_patches.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -136,7 +139,14 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.copy_block_launch.restype = ctypes.c_int
-        for fn in (lib.convert_u8_bf16_error_string, lib.copy_block_error_string):
+        lib.extract_patches_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.extract_patches_launch.restype = ctypes.c_int
+        for fn in (lib.convert_u8_bf16_error_string, lib.copy_block_error_string,
+                   lib.extract_patches_error_string):
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_char_p
         _lib = lib
