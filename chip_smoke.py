@@ -15,9 +15,11 @@ Phases (any failure exits non-zero and prints no result line):
    launch counters are zeroed just before and read just after, with
    the shapes they were launched at. Delays within 0.5 ms of the truth;
 3. K1/K2 against their plain PyTorch version at every shape phase 2
-   launched them at, on seeded inputs: max relative error of the
-   bracket (<= 2e-6), argmin agreement, kernel and plain times (CUDA
-   events, each call after a 1 GiB overwrite: L2 cold, queued behind);
+   launched them at, on seeded inputs: bit-equal (the max relative
+   error is printed too), argmin agreement, the kernel's registers and
+   local-memory bytes a thread (a spill shows there), kernel and plain
+   times (CUDA events, each call after a 1 GiB overwrite: L2 cold,
+   queued behind);
 4. a small engine problem gives the same delays on the card as on the
    CPU (plain versions) within 0.1 ms;
 5. PreSync and Sync(4x) times through the stages `run_batched` chains
@@ -55,7 +57,8 @@ Phases (any failure exits non-zero and prints no result line):
 12. E5-E8 against their plain versions at every shape their paths
     launched them at (E8 also at the batched-Sync shape B=30, I=200),
     each bit-equal; kernel, plain and library times and the bound; E8
-    also against K2's kernel, with K2's time beside its own;
+    also against K2's kernel, with K2's time beside its own, and its
+    registers and local-memory bytes a thread;
 13. the patch paths of rssync_tpu_torch/experiments, each with its
     kernel's counters zeroed just before and read just after:
     pallas_patch.extract_patches (E1) at mb_extract's 2028x2704 image
@@ -90,9 +93,6 @@ import subprocess
 import sys
 import time
 
-#: kernel-vs-plain bound on the bracket (ops/score.py: both sum the
-#: mean in one order, so they are expected to be bit-equal)
-KERNEL_RTOL = 2e-6
 #: engine accuracy target (ms) and card-vs-CPU agreement (ms)
 OFFSET_TOL_MS = 0.5
 CPU_AGREE_MS = 0.1
@@ -101,13 +101,23 @@ CPU_AGREE_MS = 0.1
 TRACK_AGREE_PX = 2e-3
 #: textured-scene tracking error limits (median, p95), px
 TEX_MED_PX, TEX_P95_PX = 0.03, 0.12
-#: published H100 SXM peaks: HBM bytes/s, float32 (non-tensor) ops/s
+#: published H100 SXM peaks: HBM bytes/s; operations/s outside the
+#: tensor cores in float32, bf16 and int32 (NVIDIA's H100 white paper,
+#: SXM5: 66.9 TFLOP/s, 133.8 TFLOP/s, 33.5 TOP/s)
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
-#: f32 operations per (row, hypothesis, valid feature) of K1/K2: the
-#: residual (3 mul + 2 add), its square, the tree sum, the max, the
-#: bf16 quantization, and 12 compare-and-count rounds of 2
-SCORE_OPS = 33
+BF16_OPS_S = 133.8e12
+INT32_OPS_S = 33.5e12
+#: operations per (row, hypothesis, valid feature) of K1/K2 (False) and
+#: E8 (True), each with the peak of the type it runs in: the residual
+#: (3 mul + 2 add), its square, the tree sum and the max in float32; the
+#: bf16 quantization; 12 compare-and-count rounds of 2, in bf16 for
+#: K1/K2 (set.le / add.rn.bf16x2) and in int16 for E8, two to a 32-bit
+#: integer instruction
+SCORE_OPS = {
+    False: ((8, F32_OPS_S), (1, BF16_OPS_S), (24, BF16_OPS_S)),
+    True: ((8, F32_OPS_S), (1, BF16_OPS_S), (24, 2 * INT32_OPS_S)),
+}
 #: the tracker's operating point (bench.py's tracking stage)
 TRACK_HW = (2028, 2704)
 GRID_STEP = 200
@@ -174,11 +184,38 @@ def score_inputs(np, torch, seed, B, F, N, I, dev):
     return [torch.tensor(x, device=dev) for x in (P, v, counts)]
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def score_kernel_attrs(N: int, i16: bool) -> dict:
+    """Registers and local-memory bytes a thread of the scoring kernel a
+    launch at N features takes (csrc/score_quartile.cu picks it from N)."""
+    import ctypes
+
+    from rssync_tpu_torch.ops import _kernels
+
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = _kernels.load().score_quartile_kernel_attrs(N, int(i16), ctypes.byref(regs),
+                                                     ctypes.byref(local))
+    check(rc == 0, f"cudaFuncGetAttributes failed ({rc}) for the scoring kernel at N={N}")
+    return dict(regs=regs.value, local_bytes=local.value)
+
+
+def bound(n_bytes: float, n_ops: float, ops_s: float = F32_OPS_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it) at the published
-    peaks: bytes over the HBM rate, operations over the f32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+    peaks: bytes over the HBM rate, operations over `ops_s` (the f32
+    rate unless given)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def score_bound(torch, nP, v, counts, out, i16: bool) -> tuple[float, str]:
+    """bound() of K1/K2 (E8 with `i16`): every input read once and the
+    output written once; SCORE_OPS for each valid feature of each
+    (row, hypothesis), each operation at the peak of its type."""
+    N, I = nP.shape[-1], v.shape[-1]
+    n_bytes = 4 * (nP.numel() + v.numel() + counts.numel() + out.numel())
+    n_feat = I * int(torch.clamp(counts.long(), max=N).sum())
+    ops = SCORE_OPS[i16]
+    n = sum(k for k, _ in ops)
+    return bound(n_bytes, n * n_feat, n / sum(k / rate for k, rate in ops))
 
 
 def compare_score(np, torch, S, name, shape, dev, seed, flush):
@@ -199,20 +236,21 @@ def compare_score(np, torch, S, name, shape, dev, seed, flush):
     scale = torch.clamp(torch.maximum(got.abs(), want.abs()), min=1e-30)
     rel = float(((got - want).abs() / scale).max())
     agree = float((got.argmin(-1) == want.argmin(-1)).float().mean())
-    n_bytes = 4 * (nP.numel() + v.numel() + counts.numel() + got.numel())
-    n_ops = SCORE_OPS * I * int(torch.clamp(counts.long(), max=N).sum())
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = score_bound(torch, nP, v, counts, got, i16=False)
+    equal = bool(torch.equal(got, want))
     out = dict(
-        B=B, F=F, N=N, I=I, max_rel_err=rel,
+        B=B, F=F, N=N, I=I, bit_equal=equal, max_rel_err=rel,
         max_abs_err=float((got - want).abs().max()), argmin_agree=agree,
         ms=cuda_ms(lambda: kern(nP, v, counts), torch, flush),
         plain_ms=cuda_ms(lambda: plain(nP, v, counts), torch, flush),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        **score_kernel_attrs(N, False),
     )
-    print(f"# {name} B={B} F={F} N={N} I={I}: max rel err {rel:.3e}, "
-          f"argmin agree {agree:.6f}, kernel {out['ms']:.4f} ms, "
-          f"plain {out['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    check(rel <= KERNEL_RTOL, f"{name}: kernel differs from plain version ({rel:.3e})")
+    print(f"# {name} B={B} F={F} N={N} I={I}: bit-equal {equal} (max rel err {rel:.3e}), "
+          f"argmin agree {agree:.6f}, {out['regs']} registers and {out['local_bytes']} "
+          f"local bytes a thread, kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    check(equal, f"{name}: kernel differs from plain version (max rel err {rel:.3e})")
     return out
 
 
@@ -339,9 +377,7 @@ def compare_i16(np, torch, S, shape, dev, seed, flush):
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"score_quartile_i16: bad output {tuple(got.shape)}")
     equal, equal_k2 = bool(torch.equal(got, want)), bool(torch.equal(got, k2))
-    n_bytes = 4 * (nP.numel() + v.numel() + counts.numel() + got.numel())
-    n_ops = SCORE_OPS * I * int(torch.clamp(counts.long(), max=N).sum())
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = score_bound(torch, nP, v, counts, got, i16=True)
 
     def e8():
         S.score_quartile_i16(nP, v, counts)
@@ -357,9 +393,11 @@ def compare_i16(np, torch, S, shape, dev, seed, flush):
         ms=(e8_a + e8_b) / 2, k2_ms=(k2_a + k2_b) / 2,
         plain_ms=cuda_ms(lambda: S.score_quartile_i16_ref(nP, v, counts), torch, flush),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        **score_kernel_attrs(N, True),
     )
     print(f"# score_quartile_i16 B={B} F={F} N={N} I={I}: bit-equal to plain {equal}, to K2 "
-          f"{equal_k2}; E8 {out['ms']:.4f} ms ({e8_a:.4f}, {e8_b:.4f}), K2 {out['k2_ms']:.4f} "
+          f"{equal_k2}; {out['regs']} registers and {out['local_bytes']} local bytes a thread; "
+          f"E8 {out['ms']:.4f} ms ({e8_a:.4f}, {e8_b:.4f}), K2 {out['k2_ms']:.4f} "
           f"ms ({k2_a:.4f}, {k2_b:.4f}), plain {out['plain_ms']:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     check(equal and equal_k2, f"score_quartile_i16 differs at {shape}")

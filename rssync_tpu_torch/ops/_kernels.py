@@ -110,15 +110,15 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.score_quartile_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.score_quartile_launch.restype = ctypes.c_int
         lib.score_quartile_i16_launch.argtypes = lib.score_quartile_launch.argtypes
         lib.score_quartile_i16_launch.restype = ctypes.c_int
-        for fn in (lib.score_quartile_smem_bytes, lib.score_quartile_i16_smem_bytes):
-            fn.argtypes = [ctypes.c_int, ctypes.c_int]
-            fn.restype = ctypes.c_size_t
+        lib.score_quartile_kernel_attrs.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.score_quartile_kernel_attrs.restype = ctypes.c_int
         lib.score_quartile_error_string.argtypes = [ctypes.c_int]
         lib.score_quartile_error_string.restype = ctypes.c_char_p
         lib.gather_strips_launch.argtypes = [

@@ -40,9 +40,6 @@ LAUNCHES = {"score_quartile": 0, "score_quartile_batched": 0, "score_quartile_i1
 LAUNCH_SHAPES = {"score_quartile": set(), "score_quartile_batched": set(),
                  "score_quartile_i16": set()}
 
-#: dynamic shared memory one block may use on Hopper
-_MAX_SMEM = 232_448
-
 
 def reset_launch_counters() -> None:
     """Zero LAUNCHES and empty LAUNCH_SHAPES."""
@@ -167,19 +164,16 @@ def _launch(nP, v, counts, name: str) -> torch.Tensor:
     if B * F == 0 or I == 0:
         return out
     lib = _kernels.load()
-    i16 = name == "score_quartile_i16"
-    smem_bytes = lib.score_quartile_i16_smem_bytes if i16 else lib.score_quartile_smem_bytes
-    launch = lib.score_quartile_i16_launch if i16 else lib.score_quartile_launch
-    warps = 4 if I <= 64 else 8
-    while warps > 1 and smem_bytes(N, warps) > _MAX_SMEM:
-        warps //= 2
-    if smem_bytes(N, warps) > _MAX_SMEM:
-        raise ValueError(f"score_quartile: N={N} features exceed shared memory")
+    launch = lib.score_quartile_i16_launch if name == "score_quartile_i16" else \
+        lib.score_quartile_launch
+    # One thread a (row, hypothesis) task; the C side takes the route
+    # (the compare buffer in registers or in shared memory) from N and
+    # the tasks a block from the shared memory that needs.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             nP.data_ptr(), v.data_ptr(), counts.data_ptr(), out.data_ptr(),
-            B, F, N, I, warps, stream,
+            B, F, N, I, stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -310,8 +310,18 @@ def test_copy_block_kernel_traps_on_a_bad_start(cuda):
     assert "out of bounds" not in proc.stdout and "CUDA" in proc.stderr, proc.stderr
 
 
+#: the scoring kernel's geometry edges (tests/test_torch_score.py's
+#: EDGE_SHAPES): a ragged task count, I = 1, I = 33, N = 1, 5 and 131,
+#: the register route's last N and one past it, wide rows
+_I16_EDGE_SHAPES = [(7, 13, 130, 20), (3, 11, 130, 1), (3, 7, 130, 33), (2, 9, 1, 20),
+                    (2, 9, 5, 20), (2, 9, 131, 20), (2, 9, 256, 20), (2, 9, 257, 20),
+                    (3, 5, 700, 33)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(6000, 60, 130, 20), (30, 60, 130, 200), (3, 5, 131, 33)])
+@pytest.mark.parametrize(
+    "shape", [(6000, 60, 130, 20), (30, 60, 130, 200), (3, 5, 131, 33), *_I16_EDGE_SHAPES]
+)
 def test_i16_kernel_matches_plain_and_k2_on_card(cuda, shape):
     B, F, N, I = shape
     args = [torch.as_tensor(x, device=cuda) for x in _score_problem(11, B, F, N, I)]

@@ -40,7 +40,7 @@ def _problem(seed, F, N, I, B=None):
     rng = np.random.default_rng(seed)
     lead = () if B is None else (B,)
     P = rng.normal(size=(*lead, 3, F, N)).astype(np.float32) * 0.1
-    counts = rng.integers(5, N + 1, size=(*lead, F)).astype(np.int32)
+    counts = rng.integers(min(5, N), N + 1, size=(*lead, F)).astype(np.int32)
     counts[..., 0] = 0
     counts[..., 1] = 1
     mask = np.arange(N) < counts[..., None]
@@ -92,14 +92,75 @@ def test_batched_plain_matches_pallas_batched(ref):
 
 @pytest.mark.parametrize("n", [1, 5, 32, 130])
 def test_tree_sum_order_is_padding_invariant(n):
-    """The kernel pads the features to a power of two >= 32 and sums in
-    the halving order; extra zero padding must not change a bit."""
+    """The kernel pads the features past N with zeros and sums in the
+    halving order; extra zero padding must not change a bit."""
     x = torch.as_tensor(np.random.default_rng(n).exponential(size=(9, n)).astype(np.float32))
     base = S.tree_sum(x)
     for extra in (1, 40, 300):
         padded = torch.nn.functional.pad(x, (0, extra))
         assert torch.equal(S.tree_sum(padded), base)
     np.testing.assert_allclose(base.numpy(), x.double().sum(-1).numpy(), rtol=1e-6)
+
+
+def _pow2_at_least(x):
+    return 1 << max(x - 1, 0).bit_length()
+
+
+def _register_route_sum(x, words):
+    """csrc/score_quartile.cu's register route: `words` packed words of
+    (even, odd) slots, the even and the odd slots each summed by the
+    compile-time recursion over the words (class R mod S splits into R
+    and R + S mod 2S, a class whose least word is >= `words` pruned),
+    then the two roots added."""
+    x = torch.nn.functional.pad(x, (0, 2 * words - x.shape[-1]))
+    wp = _pow2_at_least(words)
+
+    def walk(r, s):
+        if s == wp:
+            return x[..., 2 * r], x[..., 2 * r + 1]
+        a = walk(r, 2 * s)
+        if r + s >= words:
+            return a
+        b = walk(r + s, 2 * s)
+        return a[0] + b[0], a[1] + b[1]
+
+    even, odd = walk(0, 1)
+    return even + odd
+
+
+def _wide_route_sum(x):
+    """The wide route: the slots in bit-reversed order over P = 2^k >= N,
+    zero past N, one stack of partial sums that merges as a binary
+    counter carries."""
+    n = x.shape[-1]
+    logp = max(n - 1, 0).bit_length()
+    stack = []
+    for q in range(1 << logp):
+        j = int(f"{q:0{logp}b}"[::-1], 2) if logp else 0
+        s2 = x[..., j] if j < n else torch.zeros_like(x[..., 0])
+        m = q + 1
+        while m % 2 == 0:
+            s2 = stack.pop() + s2
+            m //= 2
+        stack.append(s2)
+    return stack[0]
+
+
+@pytest.mark.parametrize("n", [1, 5, 32, 130, 131, 700])
+def test_kernel_summation_order_matches_tree_sum(n):
+    """The kernel's own summation order (the register route up to 256
+    features, with ceil(N/2) words rounded up to 8; the wide route above)
+    is bit-equal to tree_sum, on rows whose valid count is below N (zeros
+    past it)."""
+    rng = np.random.default_rng(100 + n)
+    x = rng.exponential(size=(9, n)).astype(np.float32)
+    x *= np.arange(n) < rng.integers(0, n + 1, size=(9, 1))
+    x = torch.as_tensor(x)
+    want = S.tree_sum(x)
+    if n <= 256:
+        words = -(-((n + 1) // 2) // 8) * 8
+        assert torch.equal(_register_route_sum(x, words), want)
+    assert torch.equal(_wide_route_sum(x), want)
 
 
 def test_wrappers_check_shapes():
@@ -131,12 +192,29 @@ def _main_path_shape(case, dev):
         return 1, F, N, SYNC_RANSAC_ITERS
     if case == "window_presync":  # presync_scan: a delay chunk's rows of one window
         return 1, delay_chunk(dev, D, F * N) * F, N, PRESYNC_RANSAC_ITERS
-    return 3, 5, 700, 33  # wide rows: several tree levels per lane
+    return EDGE_SHAPES[case]
+
+
+#: (B, F, N, I) shapes at the edges of the kernel's geometry: a task
+#: count that is no multiple of the block, one hypothesis a row, a row
+#: straddling warps, odd and tiny N, the register route's last N (256)
+#: and the shared-memory route from one past it to several hundred
+EDGE_SHAPES = {
+    "ragged_tasks": (7, 13, 130, 20),
+    "one_hypothesis": (3, 11, 130, 1),
+    "straddling_rows": (3, 7, 130, 33),
+    "n1": (2, 9, 1, 20),
+    "n5": (2, 9, 5, 20),
+    "n131": (2, 9, 131, 20),
+    "register_cap": (2, 9, 256, 20),
+    "past_register_cap": (2, 9, 257, 20),
+    "wide_rows": (3, 5, 700, 33),
+}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "case", ["presync_batched", "sync_batched", "window_sync", "window_presync", "wide_rows"]
+    "case", ["presync_batched", "sync_batched", "window_sync", "window_presync", *EDGE_SHAPES]
 )
 def test_kernel_matches_plain_on_card(cuda, case):
     B, F, N, I = _main_path_shape(case, cuda)
@@ -147,7 +225,7 @@ def test_kernel_matches_plain_on_card(cuda, case):
     want = S.score_quartile_batched_ref(*args)
     torch.cuda.synchronize()
     assert S.LAUNCHES["score_quartile_batched"] == before["score_quartile_batched"] + 1
-    scale = torch.clamp(torch.maximum(got.abs(), want.abs()), min=1e-30)
-    assert float(((got - want).abs() / scale).max()) <= RTOL
+    # one summation order and bf16 compares on both sides: bit-equal
+    assert torch.equal(got, want)
     one = S.score_quartile(args[0][0], args[1][0], args[2][0])
     assert torch.equal(one, got[0])
