@@ -75,8 +75,11 @@ Phases (any failure exits non-zero and prints no result line):
     launched it at (each dtype, each patches_per_block), plus one odd
     shape (37x131, 9 patches of 7, bf16, 3 a block), origins with the
     image's corners: bit-equal; kernel, plain and advanced-index gather
-    times, the bound, and the kernel's time back to back; then K3 at
-    E2's shape through the phase-10 comparison.
+    times, the bound, the launch floor (a one-element in-place add timed
+    the same way), the kernel's and the floor's times back to back, and
+    the registers and local-memory bytes a thread of the instance;
+    registers and local bytes of every instance of the kernel; then K3
+    at E2's shape through the phase-10 comparison.
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
@@ -196,6 +199,35 @@ def score_kernel_attrs(N: int, i16: bool) -> dict:
                                                      ctypes.byref(local))
     check(rc == 0, f"cudaFuncGetAttributes failed ({rc}) for the scoring kernel at N={N}")
     return dict(regs=regs.value, local_bytes=local.value)
+
+
+def patch_kernel_attrs(itemsize: int, size: int, per_block: int) -> dict:
+    """Registers and local-memory bytes a thread of the patch kernel's
+    instance for these launch arguments takes (csrc/extract_patches.cu
+    picks it from the image type, the size and the depth)."""
+    import ctypes
+
+    from rssync_tpu_torch.ops import _kernels
+
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = _kernels.load().extract_patches_kernel_attrs(itemsize, size, per_block,
+                                                      ctypes.byref(regs), ctypes.byref(local))
+    check(rc == 0, f"cudaFuncGetAttributes failed ({rc}) for the patch kernel at "
+                   f"({itemsize}, {size}, {per_block})")
+    return dict(regs=regs.value, local_bytes=local.value)
+
+
+def back_to_back_ms(fn, torch, reps: int = 200) -> float:
+    """ms a call of `fn` launched `reps` times in one event pair (L2 warm;
+    the host's enqueue cost shows where it exceeds the device's)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(n_bytes: float, n_ops: float, ops_s: float = F32_OPS_S) -> tuple[float, str]:
@@ -408,8 +440,9 @@ def compare_patches(np, torch, PT, shape, dev, seed, flush):
     """extract_patches vs its plain version at one (H, W, N, size,
     dtype, patches_per_block) launch shape, origins in bounds from a
     numpy seed with the image's four corners first; the advanced-index
-    gather (in the image dtype) as the library call, and the kernel's
-    time back to back (200 launches in one event pair, L2 warm)."""
+    gather (in the image dtype) as the library call; the launch floor,
+    a one-element in-place add timed like the kernel behind the same
+    flush; the kernel's and the floor's times back to back."""
     H, W, N, size, dtype, ppb = shape
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -434,28 +467,33 @@ def compare_patches(np, torch, PT, shape, dev, seed, flush):
     covered = int(torch.unique(ri * W + ci).numel()) * img.element_size()
     n_bytes = covered + got.numel() * 4 + o.numel() * 4
     bound_ms, bound_by = bound(n_bytes, 0)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(200):
+    one = torch.zeros(1, device=dev)
+
+    def kernel():
         PT.extract_patches(img, o, size, patches_per_block=ppb)
-    end.record()
-    torch.cuda.synchronize()
+
+    def floor():
+        one.add_(1)
+
     out = dict(
         H=H, W=W, N=N, size=size, dtype=dtype, patches_per_block=ppb, bit_equal=equal,
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(lambda: PT.extract_patches(img, o, size, patches_per_block=ppb), torch,
-                   flush, 20),
+        ms=cuda_ms(kernel, torch, flush, 20),
         plain_ms=cuda_ms(lambda: PT.extract_patches_ref(img, o, size), torch, flush, 20),
         library_ms=cuda_ms(lambda: img[ri, ci], torch, flush, 20),
-        back_to_back_ms=start.elapsed_time(end) / 200,
+        floor_ms=cuda_ms(floor, torch, flush, 20),
+        back_to_back_ms=back_to_back_ms(kernel, torch),
+        floor_back_to_back_ms=back_to_back_ms(floor, torch),
         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+        **patch_kernel_attrs(img.element_size(), size, ppb),
     )
     print(f"# extract_patches {H}x{W} N={N} size={size} {dtype} per_block={ppb}: bit-equal "
-          f"{equal}, kernel {out['ms']:.4f} ms (one launch behind a flush: launch latency at "
-          f"this size), back to back {out['back_to_back_ms']:.4f} ms, plain "
-          f"{out['plain_ms']:.4f} ms, advanced-index gather {out['library_ms']:.4f} ms, bound "
-          f"{bound_ms:.6f} ms ({n_bytes / 1e6:.3f} MB)", flush=True)
+          f"{equal}, kernel {out['ms']:.4f} ms, launch floor {out['floor_ms']:.4f} ms (one "
+          f"launch behind a flush each), back to back {out['back_to_back_ms']:.4f} ms (floor "
+          f"{out['floor_back_to_back_ms']:.4f}), plain {out['plain_ms']:.4f} ms, "
+          f"advanced-index gather {out['library_ms']:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({n_bytes / 1e6:.3f} MB), {out['regs']} registers, {out['local_bytes']} local "
+          f"bytes a thread", flush=True)
     check(equal, f"extract_patches differs from its plain version at {shape}")
     return out
 
@@ -877,6 +915,11 @@ def main() -> None:
     patch_rows = {sh: compare_patches(np, torch, PT, sh, dev, 60 + i, flush)
                   for i, sh in enumerate(patch_shapes)}
     odd_row = compare_patches(np, torch, PT, (37, 131, 9, 7, "torch.bfloat16", 3), dev, 69, flush)
+    instances = {(isz, size, depth): patch_kernel_attrs(isz, size, depth)
+                 for isz in (1, 2, 4) for size in (PT.ROW_SIZE, 7) for depth in (1, 2, 4, 8)}
+    print(f"# extract_patches instances (itemsize, size, depth): registers, local bytes a "
+          f"thread {[(k, v['regs'], v['local_bytes']) for k, v in instances.items()]}",
+          flush=True)
     e2_rows = [compare_strips(np, torch, ST, sh, dev, 70 + i, False, flush)
                for i, sh in enumerate(e2_shapes)]
     phase("14 (patch kernels vs plain)", t0)

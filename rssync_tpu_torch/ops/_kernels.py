@@ -145,6 +145,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.extract_patches_launch.restype = ctypes.c_int
+        lib.extract_patches_kernel_attrs.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.extract_patches_kernel_attrs.restype = ctypes.c_int
         for fn in (lib.convert_u8_bf16_error_string, lib.copy_block_error_string,
                    lib.extract_patches_error_string):
             fn.argtypes = [ctypes.c_int]

@@ -14,16 +14,26 @@ mb_extract2.py), and the origin clamps their callers apply.
   superset region a TPU DMA copies stays inside the image.
 - `clamp_slice` is `jax.lax.dynamic_slice`'s treatment of a start: a
   negative one counts from the end, then it is clamped into bounds.
+- `kernel_launch`, `kernel_walk` and `kernel_loads` model the kernel's
+  launch, which thread writes which output vector, and every pixel load
+  it issues, so the CPU tests can hold its mapping and its wide loads.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LANE = 128
 DTYPES = (torch.uint8, torch.bfloat16, torch.float32)
-#: most patches one block of the kernel walks (8 bytes of shared memory each)
+#: largest patches_per_block accepted (the kernel's depth stops at MAX_DEPTH)
 MAX_PER_BLOCK = 1024
+#: output vectors (four float32 each, 4 KB in all) one block writes
+VECTORS_PER_BLOCK = 256
+#: most vectors one thread loads before its first store
+MAX_DEPTH = 8
+#: the patch size with a row-vector instance; any other takes the generic one
+ROW_SIZE = 40
 
 #: kernel launches, counted where the wrapper launches its kernel
 LAUNCHES = {"extract_patches": 0}
@@ -79,6 +89,84 @@ def extract_patches_ref(img: torch.Tensor, origins: torch.Tensor, size: int) -> 
     return img[rows[:, :, None], cols[:, None, :]].float()
 
 
+def kernel_launch(N: int, size: int, patches_per_block: int) -> tuple[int, int, int]:
+    """(blocks, threads a block, depth) of the kernel's launch: each
+    block writes VECTORS_PER_BLOCK output vectors whatever
+    patches_per_block is; patches_per_block, rounded down to 1, 2, 4 or
+    8, is each thread's depth, the vectors it loads before its first
+    store, and the block runs VECTORS_PER_BLOCK / depth threads."""
+    depth = 1 << (min(patches_per_block, MAX_DEPTH).bit_length() - 1)
+    blocks = -(-N * size * size // (4 * VECTORS_PER_BLOCK))
+    return blocks, VECTORS_PER_BLOCK // depth, depth
+
+
+def kernel_walk(N: int, size: int, patches_per_block: int) -> dict[str, np.ndarray]:
+    """Every output vector a thread of the kernel writes, in the kernel's
+    order: `block`, `thread`, `slot` (the j-th vector of its thread,
+    vector = block * VECTORS_PER_BLOCK + slot * threads + thread), and
+    `elems` (M, 4, 3), the (patch, row, column) of each of the vector's
+    four floats, -1 past the end. At size ROW_SIZE a vector is four
+    pixels of one patch row; at any other it is four consecutive output
+    floats, which may cross rows and patches."""
+    blocks, threads, depth = kernel_launch(N, size, patches_per_block)
+    b, j, t = np.meshgrid(np.arange(blocks), np.arange(depth), np.arange(threads), indexing="ij")
+    v = (b * VECTORS_PER_BLOCK + j * threads + t).ravel()
+    keep = v < -(-N * size * size // 4)
+    b, j, t, v = b.ravel()[keep], j.ravel()[keep], t.ravel()[keep], v[keep]
+    e = 4 * v[:, None] + np.arange(4)
+    n, k = np.divmod(e, size * size)
+    r, c = np.divmod(k, size)
+    elems = np.where((e < N * size * size)[..., None], np.stack([n, r, c], axis=-1), -1)
+    return dict(block=b, thread=t, slot=j, vector=v, elems=elems)
+
+
+def kernel_loads(walk: dict[str, np.ndarray], size: int, origins: np.ndarray, pitch: int,
+                 itemsize: int, base: int) -> dict[str, np.ndarray]:
+    """Every pixel load the kernel issues for the vectors of `walk`, with
+    the image's first byte at address `base` (its alignment is what
+    matters) and rows `pitch` elements apart: `vector` (index into the
+    walk), `patch`, byte `address` and `width`. At size ROW_SIZE the four
+    pixels at address a of a patch row load as: float32 one 16-byte load
+    if a % 16 == 0; u8 one word if a % 4 == 0; bf16 two words if
+    a % 4 == 0; a misaligned u8 or bf16 vector that is neither the first
+    nor the last of its row loads the aligned words that cover it (two,
+    or three for bf16); everything else one load a pixel. At any other
+    size every pixel is one load."""
+    elems = walk["elems"]
+    valid = elems[..., 0] >= 0
+    n = np.where(valid, elems[..., 0], 0)
+    x, y = origins[n, 0], origins[n, 1]
+    addr = base + ((y + elems[..., 1]) * pitch + x + elems[..., 2]) * itemsize
+    idx = np.broadcast_to(np.arange(len(elems))[:, None], elems.shape[:2])
+    if size != ROW_SIZE:
+        return dict(vector=idx[valid], patch=n[valid], address=addr[valid],
+                    width=np.full(int(valid.sum()), itemsize))
+    a, vec, patch = addr[:, 0], idx[:, 0], n[:, 0]
+    seg = elems[:, 0, 2] // 4
+    edge = (seg == 0) | (seg == size // 4 - 1)
+    m = a % (16 if itemsize == 4 else 4)
+    loads = []  # (mask, address offsets from a, width)
+    if itemsize == 4:
+        loads.append((m == 0, [0], 16))
+    elif itemsize == 2:
+        loads.append((m == 0, [0, 4], 4))
+        loads.append((~edge & (m != 0), [-2, 2, 6], 4))
+    else:
+        loads.append((m == 0, [0], 4))
+        loads.append((~edge & (m != 0), [-m, 4 - m], 4))
+    wide = np.any([mask for mask, _, _ in loads], axis=0)
+    loads.append((~wide, [0, itemsize, 2 * itemsize, 3 * itemsize], itemsize))
+    out = {k: [] for k in ("vector", "patch", "address", "width")}
+    for mask, offsets, width in loads:
+        for off in offsets:
+            off = off[mask] if isinstance(off, np.ndarray) else off
+            out["vector"].append(vec[mask])
+            out["patch"].append(patch[mask])
+            out["address"].append(a[mask] + off)
+            out["width"].append(np.full(int(mask.sum()), width))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
 def _check(img, origins, size, patches_per_block) -> None:
     if img.dim() != 2:
         raise ValueError(f"extract_patches: img must be (H, W), got {tuple(img.shape)}")
@@ -108,8 +196,8 @@ def _launch(img, origins, size, patches_per_block) -> torch.Tensor:
         raise ValueError(f"extract_patches: unsupported device {dev}")
     H, W = img.shape
     N = origins.shape[0]
-    if patches_per_block * size * size >= 2**31:
-        raise ValueError(f"extract_patches: {patches_per_block} patches of {size}^2 per block")
+    if N * size * size >= 2**31:
+        raise ValueError(f"extract_patches: {N} patches of {size}^2 floats exceed 2^31 - 1")
     out = torch.empty((N, size, size), dtype=torch.float32, device=dev)
     if N == 0:
         return out
@@ -133,8 +221,10 @@ def extract_patches(img: torch.Tensor, origins: torch.Tensor, size: int,
     """(N, size, size) float32 patches: out[n, r, c] = img[y_n + r, x_n + c].
     img: (H, W) uint8, bfloat16 or float32; origins: (N, 2) int32 xy on
     the image's device, clamped by the caller into [0, W - size] x
-    [0, H - size]. patches_per_block: patches one block of the kernel
-    walks (the counterpart of E4's DMA ring depth). Replaces
+    [0, H - size]. patches_per_block: E4's DMA ring depth, which on the
+    card is each thread's depth, the output vectors it loads before its
+    first store (1, 2, 4 or 8, rounded down; see `kernel_launch`); the
+    grid does not shrink as it grows. Replaces
     experiments/pallas_patch.py _extract_pallas and the make_pallas
     kernels of experiments/mb_extract.py and mb_extract2.py."""
     _check(img, origins, size, patches_per_block)

@@ -26,15 +26,23 @@ from rssync_tpu_torch.parallel.batch import batched_presync, batched_sync, stack
 SYNC_PASSES = 4  # ref core_testcode.cpp:314
 
 
+def gyro_timestamps_us(timestamps: np.ndarray) -> np.ndarray:
+    """Gyro timestamps in seconds as the integer us the variable-rate
+    intake takes: truncated toward zero, as rssync_tpu's fill_gyro and
+    guess_orient convert them (k / 200 s for k < 12 000 gives 151
+    timestamps 1 us below rounding)."""
+    return (np.asarray(timestamps, np.float64) * 1_000_000).astype(np.int64)
+
+
 def set_gyro_rates(problem: SyncProblem, timestamps: np.ndarray, rates: np.ndarray,
                    orient: str | None) -> None:
     """Gyro intake from a rate log (ref: core_testcode.cpp:37-54): remap
     the axes by `orient`, integrate the rates into orientations, and
-    feed the variable-rate intake with the timestamps in integer us.
-    timestamps: (n,) seconds; rates: (n, 3) rad/s."""
+    feed the variable-rate intake with the timestamps in integer us
+    (`gyro_timestamps_us`). timestamps: (n,) seconds; rates: (n, 3)
+    rad/s."""
     quats = integrate_gyro(timestamps, apply_orientation(np.asarray(rates, np.float64), orient))
-    ts_us = np.round(np.asarray(timestamps, np.float64) * 1_000_000).astype(np.int64)
-    problem.set_gyro_quaternions_us(ts_us, quats)
+    problem.set_gyro_quaternions_us(gyro_timestamps_us(timestamps), quats)
 
 
 def window_pair_ranges(syncpoints: list[int], sync_window: int) -> list[tuple[int, int]]:

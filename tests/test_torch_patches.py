@@ -252,6 +252,89 @@ def test_extract_patches_plain_version_launches_nothing():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's thread -> output mapping and its loads (a model of
+# csrc/extract_patches.cu in ops/patches.py)
+
+KERNEL_SWEEP = [(130, 40, 1), (130, 40, 2), (130, 40, 8), (130, 40, 16), (9, 7, 3), (1, 1, 1),
+                (257, 41, 5), (130, 40, 1024)]
+
+
+def _kernel_origins(seed, N, H, W, size):
+    """(N, 2) int64 xy in bounds, the image's four corners first."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.integers(0, W - size + 1, N), rng.integers(0, H - size + 1, N)], axis=1)
+    corners = [[0, 0], [W - size, 0], [0, H - size], [W - size, H - size]]
+    o[: min(N, 4)] = corners[: min(N, 4)]
+    return o
+
+
+def _loads_cover_pixels(walk, loads, size, o, pitch, itemsize, base):
+    """Every output float's pixel lies inside one load of its vector."""
+    order = np.argsort(loads["vector"], kind="stable")
+    vec, addr, width = (loads[k][order] for k in ("vector", "address", "width"))
+    start = np.searchsorted(vec, np.arange(len(walk["vector"])))
+    count = np.bincount(vec, minlength=len(walk["vector"]))
+    e = walk["elems"]
+    valid = e[..., 0] >= 0
+    n = np.where(valid, e[..., 0], 0)
+    a = base + ((o[n, 1] + e[..., 1]) * pitch + o[n, 0] + e[..., 2]) * itemsize
+    covered = ~valid
+    for k in range(int(count.max())):
+        i = np.minimum(start + k, len(vec) - 1)
+        lo, hi = addr[i][:, None], (addr[i] + width[i])[:, None]
+        covered |= (k < count)[:, None] & (lo <= a) & (a + itemsize <= hi)
+    return bool(covered.all())
+
+
+@pytest.mark.parametrize("N,size,ppb", KERNEL_SWEEP)
+def test_kernel_walk_writes_each_output_once_and_reads_inside_its_patch(N, size, ppb):
+    """The kernel's mapping: whole warps, 32-256 threads, neighbouring
+    threads on neighbouring vectors, every output float written by
+    exactly one thread; and every load, the widened u8/bf16 words and
+    float4s included, inside [x, x + S) x [y, y + S) of its patch, at
+    every alignment of the image's base, W = 2S + 3 (not a multiple of
+    4) and origins on the image's last row and column."""
+    blocks, threads, depth = P.kernel_launch(N, size, ppb)
+    assert threads % 32 == 0 and 32 <= threads <= 256 and depth <= P.MAX_DEPTH
+    assert threads * depth == P.VECTORS_PER_BLOCK and depth <= ppb
+    walk = P.kernel_walk(N, size, ppb)
+    b, t, j, v, e = (walk[k] for k in ("block", "thread", "slot", "vector", "elems"))
+    assert b.max() < blocks and t.max() < threads and j.max() < depth
+    np.testing.assert_array_equal(v, b * P.VECTORS_PER_BLOCK + j * threads + t)
+    assert len(np.unique(v)) == len(v) == -(-N * size * size // 4)
+    valid = e[..., 0] >= 0
+    flat = e[..., 0] * size * size + e[..., 1] * size + e[..., 2]
+    np.testing.assert_array_equal(flat[valid], (4 * v[:, None] + np.arange(4))[valid])
+    np.testing.assert_array_equal(np.bincount(flat[valid], minlength=N * size * size), 1)
+    assert (e[valid][:, 1:] < size).all() and (e[valid][:, 0] < N).all()
+    if size == P.ROW_SIZE:  # a vector is four pixels of one patch row
+        assert (e[:, :, :2] == e[:, :1, :2]).all() and (e[:, 0, 2] % 4 == 0).all()
+    H, W = size + 29, 2 * size + 3
+    o = _kernel_origins(N + size, N, H, W, size)
+    for itemsize in (1, 2, 4):
+        for base in range(0, 16 if itemsize == 4 else 4, itemsize):
+            loads = P.kernel_loads(walk, size, o, W, itemsize, base)
+            x, y = o[loads["patch"], 0], o[loads["patch"], 1]
+            row, col = np.divmod(loads["address"] - base, W * itemsize)
+            inside = ((y <= row) & (row < y + size) & (x * itemsize <= col)
+                      & (col + loads["width"] <= (x + size) * itemsize))
+            assert inside.all(), (itemsize, base, np.flatnonzero(~inside)[:5])
+            assert _loads_cover_pixels(walk, loads, size, o, W, itemsize, base), (itemsize, base)
+            if size == P.ROW_SIZE:  # the wide loads are taken
+                assert (loads["width"] > itemsize).any()
+
+
+@pytest.mark.parametrize("ppb", [1, 2, 8, 16])
+def test_kernel_grid_fills_the_card_at_every_launched_depth(ppb):
+    """At the harnesses' 130 patches of 40 x 40 every patches_per_block
+    they launch gives one grid of at least 132 blocks (the H100's SMs):
+    the depth changes the threads a block, not the blocks."""
+    blocks, threads, depth = P.kernel_launch(130, 40, ppb)
+    assert blocks >= 132 and blocks == P.kernel_launch(130, 40, 1)[0]
+    assert threads * depth == P.VECTORS_PER_BLOCK
+
+
+# ---------------------------------------------------------------------------
 # the harnesses, end to end on the CPU
 
 
@@ -322,6 +405,41 @@ def test_extract_patches_kernel_matches_plain_on_card(cuda, dtype, patches_per_b
     o = torch.as_tensor(o, device=cuda)
     before = P.LAUNCHES["extract_patches"]
     got = P.extract_patches(img, o, size, patches_per_block=patches_per_block)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES["extract_patches"] == before + 1
+    assert torch.equal(got, P.extract_patches_ref(img, o, size))
+
+
+#: (H, W, N, size, patches_per_block, storage offset in elements): odd
+#: sizes (the generic instance), one patch and 257, views whose base is
+#: not aligned, W not a multiple of 4; the corners are always among the
+#: origins, so patches touch the last row and column
+EDGE_CASES = {
+    "s7": (37, 131, 9, 7, 3, 0),
+    "s41-n257": (300, 403, 257, 41, 5, 0),
+    "s40-n1": (50, 63, 1, 40, 1, 0),
+    "s40-n257": (500, 601, 257, 40, 16, 0),
+    "s1-n1": (5, 7, 1, 1, 1, 0),
+    "s40-offset1": (97, 203, 130, 40, 8, 1),
+    "s40-offset3": (97, 203, 130, 40, 2, 3),
+    "s7-offset1": (37, 131, 9, 7, 4, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_extract_patches_kernel_edge_shapes_match_plain_on_card(cuda, case, dtype):
+    """Bit-equal to the plain version at odd sizes and counts, on a view
+    that starts `offset` elements into its buffer and ends at its last
+    element."""
+    H, W, N, size, ppb, offset = EDGE_CASES[case]
+    buf = _image(12, 1, offset + H * W, dtype)[0][0].to(cuda)
+    img = buf[offset:].view(H, W)
+    assert img.is_contiguous() and img.storage_offset() == offset
+    o = torch.as_tensor(_kernel_origins(13, N, H, W, size).astype(np.int32), device=cuda)
+    before = P.LAUNCHES["extract_patches"]
+    got = P.extract_patches(img, o, size, patches_per_block=ppb)
     torch.cuda.synchronize()
     assert P.LAUNCHES["extract_patches"] == before + 1
     assert torch.equal(got, P.extract_patches_ref(img, o, size))

@@ -57,7 +57,7 @@ def ref():
     import rssync_tpu
     from rssync_tpu.frontend import tracking
     from rssync_tpu.ops import lens
-    from rssync_tpu.pipeline.recipe import _run_batched
+    from rssync_tpu.pipeline.recipe import _run_batched, fill_gyro
     from rssync_tpu.testing import synthvideo, texture_scene
 
     class Ref:
@@ -67,6 +67,7 @@ def ref():
     r.jnp, r.tracking, r.lens, r.synthvideo, r.texture_scene = (
         jnp, tracking, lens, synthvideo, texture_scene)
     r.create_sync_problem, r.run_batched = rssync_tpu.create_sync_problem, _run_batched
+    r.fill_gyro = fill_gyro
     return r
 
 
@@ -450,7 +451,35 @@ def _gyro_intake(clip):
     from rssync_tpu_torch.frontend.telemetry import apply_orientation
 
     quats = integrate_gyro(clip.gyro_ts, apply_orientation(clip.gyro_rates, clip.orient))
-    return np.round(clip.gyro_ts * 1e6).astype(np.int64), quats
+    return (clip.gyro_ts * 1_000_000).astype(np.int64), quats
+
+
+class _GyroIntake:
+    """A problem that records what reaches its µs gyro intake."""
+
+    def set_gyro_quaternions_us(self, ts_us, quats):
+        self.ts_us, self.quats = np.asarray(ts_us), np.asarray(quats)
+
+
+def test_set_gyro_rates_truncates_to_us_as_fill_gyro(ref, tmp_path):
+    """`set_gyro_rates` feeds the µs intake what rssync_tpu's fill_gyro
+    feeds it from a log of the same samples: timestamps k / 200 s
+    truncated to integer µs (151 of these 12 000 round 1 µs higher),
+    and the same orientations. The log is a plain CSV at 17 significant
+    digits, which load_gyro reads back exactly. Quaternions: both
+    integrate in float64, in their own copies of the same code."""
+    ts = np.arange(12_000) / 200
+    rates = np.random.default_rng(13).normal(scale=0.5, size=(12_000, 3))
+    assert int((np.round(ts * 1e6) != (ts * 1e6).astype(np.int64)).sum()) == 151
+    log = tmp_path / "gyro.csv"
+    np.savetxt(log, np.column_stack([ts, rates]), delimiter=",", fmt="%.17g",
+               header="t,gx,gy,gz", comments="")
+    got, want = _GyroIntake(), _GyroIntake()
+    set_gyro_rates(got, ts, rates, "yXz")
+    ref.fill_gyro(want, str(log), "yXz")
+    assert got.ts_us.dtype == want.ts_us.dtype == np.int64
+    np.testing.assert_array_equal(got.ts_us, want.ts_us)
+    np.testing.assert_allclose(got.quats, want.quats, rtol=0, atol=1e-12)
 
 
 def test_track_clip_ranges_and_tail_blocks():
