@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port once on an NVIDIA card: the sync engine,
-the LK tracker, and rendered frames -> tracks -> sync end to end.
+the LK tracker, rendered frames -> tracks -> sync end to end, telemetry
+files -> sync, and the reference engine's golden data.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (any failure exits non-zero and prints no result line):
-1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
-   the build of the CUDA kernels from rssync_tpu_torch/csrc;
+1. the card (nvidia-smi name and power limit), torch/CUDA versions, the
+   build of the CUDA kernels from rssync_tpu_torch/csrc and, at the same
+   time, of the native telemetry parser (`make -C native/gpmf`);
 2. the engine's main path at its reference operating point (60 s at
    60 fps, 130 features, 200 Hz gyro, 30 windows of 60 frames, PreSync
    over +-200 ms in 2 ms steps, 4 Sync passes) through the entry points
@@ -21,10 +23,15 @@ Phases (any failure exits non-zero and prints no result line):
    times (CUDA events, each call after a 1 GiB overwrite: L2 cold,
    queued behind);
 4. a small engine problem gives the same delays on the card as on the
-   CPU (plain versions) within 0.1 ms;
+   CPU (plain versions) within 0.1 ms, through `run_batched` and through
+   PreSync + 4 L-BFGS Sync passes;
 5. PreSync and Sync(4x) times through the stages `run_batched` chains
    (median of 3 after one warm-up), peak device memory, outer Sync
-   iterations per pass;
+   iterations per pass; then, after the same PreSync, 4 Sync passes with
+   motion_opt="lbfgs" over all 30 windows (`sync_stage` -> `sync_loop`,
+   what rssync_tpu's vmap of sync_window computes), K1/K2 counters zeroed
+   just before and read just after: wall time (one run), outer and
+   L-BFGS iterations, max offset error <= 0.5 ms, beside IRLS's;
 6. the tracker at its operating point: 241 noise frames of 2704x2028
    (stored 2816x2056, made on the card) through
    `lk_track_video_chunked` in 16-pair chunks on the 130-point grid.
@@ -38,7 +45,15 @@ Phases (any failure exits non-zero and prints no result line):
    42.3 ms, 200 Hz gyro), the pairs of its 4 syncpoint windows tracked
    in 16-pair blocks and emitted into a SyncProblem on the card, the
    gyro log integrated into it, then `run_batched`; every window within
-   0.5 ms of the truth;
+   0.5 ms of the truth. Then the same gyro log from files: written as a
+   .gcsv (rssync_tpu's make_clip layout) and as a GoPro GPMF MP4
+   (tests/gpmf_fixture.py's writer), each read by `load_gyro` through the
+   native and the Python parser (equal arrays; times and the parser that
+   served the dispatcher printed) and fed by `fill_gyro` into a SyncProblem
+   of the same seed holding the same tracks (through utils/track_cache),
+   then `run_batched` with the K2 counters zeroed just before and read
+   just after: delays within 0.5 ms of the truth and 0.01 ms of the
+   in-memory intake;
 9. a small rendered clip (640x480, 26 frames, 30 fps) tracked and
    synced on the card and on the CPU: tracks within 2e-3 px, delays
    within 0.1 ms;
@@ -79,7 +94,15 @@ Phases (any failure exits non-zero and prints no result line):
     the same way), the kernel's and the floor's times back to back, and
     the registers and local-memory bytes a thread of the instance;
     registers and local bytes of every instance of the kernel; then K3
-    at E2's shape through the phase-10 comparison.
+    at E2's shape through the phase-10 comparison;
+15. the reference engine's golden data (tests/golden/golden.npz, six
+    scenes of tests/synthetic.py::make_scene built by
+    rssync_tpu_torch/testing/golden.py) on the card, K1/K2 counters zeroed
+    just before and read just after: P at the five probe delays (<= 5e-5),
+    spline samples (<= 2e-5), 4-pass IRLS Sync (<= 2.5e-4 s of the
+    reference, <= 5e-4 s of the truth), 4-pass L-BFGS trajectories
+    (iterates and steps <= 3e-5, 1e-4 for "interp"; iteration counts
+    within 1); every scene's largest error printed beside its limit.
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
@@ -91,14 +114,21 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: engine accuracy target (ms) and card-vs-CPU agreement (ms)
 OFFSET_TOL_MS = 0.5
 CPU_AGREE_MS = 0.1
+#: file intake vs the in-memory intake of the same log (ms)
+FILE_AGREE_MS = 0.01
+#: this checkout's root: tests/ (make_scene, the GPMF writer, the golden
+#: data) and native/gpmf
+ROOT = os.path.dirname(os.path.abspath(__file__))
 #: card-vs-CPU agreement of tracked positions (px): float32 sums and
 #: small matmuls reduce in another order on each device
 TRACK_AGREE_PX = 2e-3
@@ -509,6 +539,8 @@ def main() -> None:
         import numpy as np
 
         from rssync_tpu_torch import create_sync_problem
+        from rssync_tpu_torch.core import sync as SY
+        from rssync_tpu_torch.core.problem import compute_problem
         from rssync_tpu_torch.experiments import (
             mb_extract,
             mb_extract2,
@@ -520,6 +552,7 @@ def main() -> None:
             r4_u8pass2,
         )
         from rssync_tpu_torch.experiments._harness import FULL, make_frames
+        from rssync_tpu_torch.frontend import telemetry as TEL
         from rssync_tpu_torch.frontend import tracking as TR
         from rssync_tpu_torch.ops import _kernels
         from rssync_tpu_torch.ops import blockcopy as BC
@@ -527,8 +560,10 @@ def main() -> None:
         from rssync_tpu_torch.ops import patches as PT
         from rssync_tpu_torch.ops import score as S
         from rssync_tpu_torch.ops import strips as ST
+        from rssync_tpu_torch.ops.spline import eval_spline_packed
         from rssync_tpu_torch.pipeline.recipe import (
             SYNC_PASSES,
+            fill_gyro,
             make_syncpoints,
             presync_stage,
             run_batched,
@@ -543,8 +578,14 @@ def main() -> None:
             PRESYNC_STEP_MS,
             make_engine_problem,
         )
-        from rssync_tpu_torch.testing.synthvideo import make_clip
+        from rssync_tpu_torch.testing import golden as GD
+        from rssync_tpu_torch.testing.synthvideo import make_clip, write_gcsv
         from rssync_tpu_torch.testing.texture_scene import render_scene, tracking_error
+        from rssync_tpu_torch.utils import track_cache
+
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from gpmf_fixture import write_gpmf_mp4
+        from synthetic import make_scene
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
     dev = torch.device("cuda")
@@ -565,9 +606,14 @@ def main() -> None:
     print(card, flush=True)
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    make = subprocess.Popen(["make", "-C", os.path.join(ROOT, "native", "gpmf")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _kernels.load()
     print(f"# kernel build+load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc, one process per source, {_kernels.build_seconds:.2f} s)", flush=True)
+    make_log = make.communicate(timeout=300)[0]
+    check(make.returncode == 0, f"make -C native/gpmf failed:\n{make_log}")
+    print(f"# native telemetry parser built: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- phase 2: the engine's main path at the operating point -------------
     t0 = time.perf_counter()
@@ -639,6 +685,20 @@ def main() -> None:
     agree_ms = float(np.abs(np.subtract(*per_device)).max())
     print(f"# small engine problem: card vs CPU delays agree to {agree_ms:.6f} ms", flush=True)
     check(agree_ms <= CPU_AGREE_MS, f"card and CPU disagree by {agree_ms:.4f} ms")
+    per_device = []
+    for where in (dev, torch.device("cpu")):
+        p = create_sync_problem(seed=0, device=where)
+        small.feed(p)
+        ow, cw = syncpoint_windows(p, small.syncpoints, 12)
+        best = presync_stage(p, ow, 0.0, 200.0, 2.0)
+        res = sync_stage(p, cw, best, 0.0, 0.2, motion_opt="lbfgs")[-1]
+        per_device.append(1000 * res.delay.double().cpu().numpy())
+    agree_ms = float(np.abs(np.subtract(*per_device)).max())
+    small_err = float(np.abs(per_device[0] - 1000 * small.true_delay).max())
+    print(f"# small engine problem, L-BFGS Sync: card vs CPU delays agree to {agree_ms:.6f} ms; "
+          f"card error {small_err:.4f} ms", flush=True)
+    check(agree_ms <= CPU_AGREE_MS, f"L-BFGS: card and CPU disagree by {agree_ms:.4f} ms")
+    check(small_err <= OFFSET_TOL_MS, f"L-BFGS small problem offset error {small_err:.4f} ms")
     phase("4 (engine card vs CPU)", t0)
 
     # -- phase 5: engine stage times at the operating point -----------------
@@ -672,8 +732,35 @@ def main() -> None:
           f"max offset err: {bench_err_ms:.4f} ms  peak device memory {peak_gib:.3f} GiB  "
           f"outer iterations per pass {iters} ({card})", flush=True)
     check(bench_err_ms <= OFFSET_TOL_MS, f"timed-run offset error {bench_err_ms:.4f} ms")
-    del sp, open_wins, closed_wins, out
-    phase("5 (engine stage times)", t0)
+
+    # the L-BFGS Sync at full width, after the same PreSync
+    S.reset_launch_counters()
+    SY.reset_lbfgs_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lbfgs = sync_stage(sp, closed_wins, out["presync"], 0.0, radius_s, motion_opt="lbfgs")
+    torch.cuda.synchronize()
+    t_lbfgs = time.perf_counter() - t1
+    lbfgs_launches = dict(S.LAUNCHES)
+    lbfgs_counts = dict(SY.LBFGS_COUNTS)
+    lbfgs_err_ms = float((lbfgs[-1].delay.double() - truth).abs().max()) * 1000
+    lbfgs_iters = [int(r.iterations.max()) for r in lbfgs]
+    lbfgs_trips = [int(r.motion_iterations.max()) for r in lbfgs]
+    irls_rounds = [int(r.motion_iterations.max()) for r in out["sync"]]
+    lbfgs_vs_irls = float((lbfgs[-1].delay - out["sync"][-1].delay).abs().max()) * 1000
+    print(f"# Sync(4x) motion_opt=lbfgs over {W} windows: {t_lbfgs:.4f} s (one run), outer "
+          f"iterations per pass {lbfgs_iters}, L-BFGS iterations per pass (most of any window) "
+          f"{lbfgs_trips}, batched L-BFGS loop {lbfgs_counts['trips']} trips with "
+          f"{lbfgs_counts['evaluations']} value-and-gradient evaluations "
+          f"({1e3 * t_lbfgs / max(lbfgs_counts['trips'], 1):.3f} ms a trip), launches "
+          f"{lbfgs_launches}, max offset err {lbfgs_err_ms:.4f} ms; "
+          f"IRLS beside it: {t_sync:.4f} s (median of 3), outer iterations {iters}, IRLS "
+          f"rounds {irls_rounds}, max offset err {bench_err_ms:.4f} ms; L-BFGS vs IRLS delays "
+          f"{lbfgs_vs_irls:.4f} ms apart ({card})", flush=True)
+    check(lbfgs_launches["score_quartile_batched"] > 0, "L-BFGS Sync did not launch K2")
+    check(lbfgs_err_ms <= OFFSET_TOL_MS, f"L-BFGS Sync offset error {lbfgs_err_ms:.4f} ms")
+    del sp, open_wins, closed_wins, out, lbfgs
+    phase("5 (engine stage times, IRLS and L-BFGS)", t0)
 
     # -- phase 6: the tracker at its operating point ------------------------
     t0 = time.perf_counter()
@@ -760,8 +847,53 @@ def main() -> None:
           "end to end: a kernel was not launched")
     check(bool(np.isfinite(e2e_err).all()) and e2e_err.max() <= OFFSET_TOL_MS,
           f"end to end offset error {e2e_err.max():.4f} ms")
+
+    # the same gyro log from files, through load_gyro and fill_gyro
+    with tempfile.TemporaryDirectory() as tmp:
+        tracks = os.path.join(tmp, "tracks.npz")
+        track_cache.save_tracks(sp, tracks)
+        files = {"gcsv": os.path.join(tmp, "clip.gcsv"), "gpmf": os.path.join(tmp, "clip.mp4")}
+        write_gcsv(files["gcsv"], clip.gyro_ts, clip.gyro_rates)
+        # the int16 GYRO samples' SCAL: the finest the log's largest rate allows
+        gpmf_scale = int(32767 // np.abs(clip.gyro_rates).max())
+        write_gpmf_mp4(files["gpmf"], clip.gyro_rates, rate_hz=clip.gyro_rate,
+                       scale=gpmf_scale)
+        for fmt, path in files.items():
+            t1 = time.perf_counter()
+            native = TEL.load_gyro(path, clip.orient, prefer_native=True)
+            t_native = time.perf_counter() - t1
+            served = "native" if TEL._native_load(path, clip.orient) is not None else "python"
+            t1 = time.perf_counter()
+            python = TEL.load_gyro(path, clip.orient, prefer_native=False)
+            t_python = time.perf_counter() - t1
+            same = (np.array_equal(native.timestamps, python.timestamps)
+                    and np.array_equal(native.gyro, python.gyro))
+            p = create_sync_problem(seed=0)
+            track_cache.load_tracks(p, tracks)
+            fill_gyro(p, path, clip.orient)
+            S.reset_launch_counters()
+            t1 = time.perf_counter()
+            file_ms = np.asarray(run_batched(p, syncpoints, sync_window, 1.0, True,
+                                             PRESYNC_RADIUS_MS, PRESYNC_STEP_MS))
+            t_file = time.perf_counter() - t1
+            file_err = np.abs(file_ms - 1000 * clip.true_delay)
+            file_agree = float(np.abs(file_ms - e2e_ms).max())
+            print(f"# file intake {fmt} ({os.path.getsize(path)} B, {native.samples} samples"
+                  + (f", SCAL {gpmf_scale}" if fmt == "gpmf" else "") + f"): load_gyro "
+                  f"{1e3 * t_native:.3f} ms served by the {served} parser, Python parser "
+                  f"{1e3 * t_python:.3f} ms, parsers equal {same}; run_batched "
+                  f"{t_file:.2f} s, launches {dict(S.LAUNCHES)}; delays "
+                  f"{file_ms.round(4).tolist()} ms, errors {file_err.round(4).tolist()} ms, "
+                  f"{file_agree:.6f} ms from the in-memory intake", flush=True)
+            check(served == "native", f"{fmt}: the native parser did not serve load_gyro")
+            check(same, f"{fmt}: the native and Python parsers disagree")
+            check(S.LAUNCHES["score_quartile_batched"] > 0, f"{fmt}: K2 was not launched")
+            check(bool(np.isfinite(file_err).all()) and file_err.max() <= OFFSET_TOL_MS,
+                  f"{fmt} intake offset error {file_err.max():.4f} ms")
+            check(file_agree <= FILE_AGREE_MS,
+                  f"{fmt} intake {file_agree:.6f} ms from the in-memory intake")
     del clip, sp
-    phase("8 (end to end at full width)", t0)
+    phase("8 (end to end at full width, in memory and from files)", t0)
 
     # -- phase 9: a small rendered clip on the card and on the CPU ----------
     t0 = time.perf_counter()
@@ -923,6 +1055,56 @@ def main() -> None:
     e2_rows = [compare_strips(np, torch, ST, sh, dev, 70 + i, False, flush)
                for i, sh in enumerate(e2_shapes)]
     phase("14 (patch kernels vs plain)", t0)
+
+    # -- phase 15: the reference engine's golden data on the card -----------
+    t0 = time.perf_counter()
+    golden = np.load(GD.GOLDEN)
+    scenes = {name: make_scene(**cfg) for name, cfg in GD.SCENES.items()}
+    t_scenes = time.perf_counter() - t0
+    S.reset_launch_counters()
+    for name, scene in scenes.items():
+        table, win = GD.scene_problem(name, scene, golden, dev)
+        F = GD.SCENES[name]["n_frames"]
+        p_err = 0.0
+        for d in GD.PROBE_DELAYS:
+            P = compute_problem(table, win, torch.tensor(d, device=dev)).permute(1, 2, 0).cpu()
+            for f in (0, F // 2, F - 2):
+                ref = golden[f"{name}/P/f{f}/d{d}"]
+                p_err = max(p_err, float(np.abs(P[f, : ref.shape[0]].numpy() - ref).max()))
+        ts = golden[f"{name}/spline/ts"]
+        vals = eval_spline_packed(
+            table.coeffs, torch.tensor(np.floor(ts), dtype=torch.int32, device=dev),
+            torch.tensor(ts - np.floor(ts), dtype=torch.float32, device=dev)).T.cpu().numpy()
+        spline_err = float(np.abs(vals - golden[f"{name}/spline/vals"]).max())
+        start = float(golden[f"{name}/presync"][1])
+        irls = float(GD.sync_passes(table, win, start, "irls")[-1].delay)
+        irls_ref = abs(irls - golden[f"{name}/sync_delays"][-1])
+        irls_truth = abs(irls - GD.SCENES[name]["true_delay"])
+        traj_err, it_off = 0.0, 0
+        for k, res in enumerate(GD.sync_passes(table, win, start, "lbfgs")):
+            ref = golden[f"{name}/sync_traj/p{k}"]
+            n = int(res.iterations)
+            it_off = max(it_off, abs(n - len(ref)))
+            m = min(n, len(ref))
+            if m:
+                traj_err = max(
+                    traj_err,
+                    float(np.abs(res.trace_delay[:m].cpu().numpy() - ref[:m, 0]).max()),
+                    float(np.abs(res.trace_step[:m].abs().cpu().numpy() - ref[:m, 1]).max()))
+        atol = GD.trajectory_atol(name)
+        print(f"# golden {name} on the card: P {p_err:.3e} (<= {GD.P_ATOL:g}), spline "
+              f"{spline_err:.3e} (<= {GD.SPLINE_ATOL:g}), IRLS Sync {irls_ref:.3e} s from the "
+              f"reference (<= {GD.SYNC_REF_TOL_S:g}) and {irls_truth:.3e} s from the truth (<= "
+              f"{GD.SYNC_TRUTH_TOL_S:g}), L-BFGS trajectories {traj_err:.3e} (<= {atol:g}), "
+              f"iteration counts off by <= {it_off} (<= 1)", flush=True)
+        check(p_err <= GD.P_ATOL and spline_err <= GD.SPLINE_ATOL
+              and irls_ref < GD.SYNC_REF_TOL_S and irls_truth < GD.SYNC_TRUTH_TOL_S
+              and traj_err <= atol and it_off <= 1, f"golden scene {name} out of tolerance")
+    torch.cuda.synchronize()
+    print(f"# golden scenes: make_scene on the host {t_scenes:.2f} s; launches "
+          f"{dict(S.LAUNCHES)}", flush=True)
+    check(S.LAUNCHES["score_quartile"] > 0, "the golden Sync passes did not launch K1")
+    phase("15 (golden data on the card)", t0)
 
     csrc = "rssync_tpu_torch/csrc/"
     h = "rssync_tpu_torch.experiments."

@@ -13,14 +13,20 @@ caller asks for the CPU.
 Layering (mirrors rssync_tpu):
 
   ops/       quaternions, splines, robust-loss helpers, the fisheye lens,
-             the scoring and strip-fetch kernels
-  frontend/  gyro integration, axis conventions, the LK tracker with
-             rolling-shutter timestamps and ray lifting
-  core/      epipolar problem, RANSAC, PreSync, Sync, the SyncProblem API
+             the gyro DSP, the scoring and strip-fetch kernels
+  frontend/  telemetry ingest (seven formats; the native parser of
+             native/gpmf through ctypes when built), the telemetry probe,
+             lens profiles, gyro integration, axis conventions, the LK
+             tracker with rolling-shutter timestamps and ray lifting
+  core/      epipolar problem, RANSAC, PreSync, Sync (IRLS or batched
+             L-BFGS motion), the SyncProblem API
   parallel/  batched PreSync / Sync over a leading window axis
-  pipeline/  gyro intake from rates and the batched syncpoint run
-  testing/   synthetic problems, rendered clips and scenes, profilers
-  utils/     invariant guards
+  pipeline/  gyro intake from a telemetry file or rates, and the batched
+             syncpoint run
+  analysis/  the sync-quality metric
+  testing/   synthetic problems, rendered clips and scenes, the golden
+             scenes, profilers
+  utils/     invariant guards, stage timings, the track cache
 
 float32 math is pinned to IEEE at import: TF32 would silently drop
 mantissa bits from every float32 matmul and convolution on the card.

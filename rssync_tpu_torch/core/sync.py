@@ -6,12 +6,14 @@ src/core_support/backtrack.cpp:3-13).
   init:   motion direction per frame from 200-hypothesis RANSAC, var_k
           from GuessK, both at the initial delay (ref :218-223).
   loop (<= 400 outer iterations, ref :309), over a stack of windows:
-    1. IRLS refinement of each frame's direction at the current delay
-       (deviation kept from rssync_tpu: the robust loss is
-       scale-invariant in M, so its stationary points on the unit
-       sphere are the fixed points of "smallest eigenvector of
-       A = sum_n w_n P_n P_n^T, w_n = 1/(1+r_n^2)"; solved by adjugate
-       inverse iteration on the 3x3 systems);
+    1. refinement of each frame's direction at the current delay, by
+       `motion_opt`: "irls" (default; deviation kept from rssync_tpu:
+       the robust loss is scale-invariant in M, so its stationary points
+       on the unit sphere are the fixed points of "smallest eigenvector
+       of A = sum_n w_n P_n P_n^T, w_n = 1/(1+r_n^2)"; solved by
+       adjugate inverse iteration on the 3x3 systems) or "lbfgs" (the
+       reference's per-frame L-BFGS run to MinGradientNorm, ref
+       :262-296, every frame of every window a lane of one batch);
     2. one Nesterov-momentum (0.3) Armijo-backtracked gradient step on
        the delay (ref :225-226, :298-305); all trials t0 * decay^k are
        evaluated in one batched call and each window keeps its first
@@ -38,6 +40,9 @@ from rssync_tpu_torch.ops.robust import clamp_k, safe_norm
 
 # --- reference hyperparameters ---------------------------------------------
 SYNC_RANSAC_ITERS = 200        # GuessMotion hypotheses (ref :127)
+LBFGS_MAX_ITERS = 200          # ens::L_BFGS MaxIterations (ref :265)
+LBFGS_MIN_GRAD = 1e-4          # ens::L_BFGS MinGradientNorm (ref :266)
+LBFGS_MEM = 5
 BT_SUFFICIENT_DECREASE = 2e-4  # Backtrack hypers (ref :226)
 BT_DECAY = 0.1
 BT_INITIAL_STEP = 1e-3
@@ -82,6 +87,204 @@ def window_loss(
     M2 = torch.clamp(torch.sum(M * M, dim=-1), min=1e-12)
     losses = torch.sum(torch.log1p(PM * PM * ((var_k * var_k) / M2)[..., None]), dim=-1)
     return torch.sum(losses * win.frame_mask, dim=-1)
+
+
+def frame_losses_and_grads(
+    P: torch.Tensor, M: torch.Tensor, var_k: torch.Tensor, frame_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`frame_loss` of every frame and its analytic gradient in M.
+
+    P (..., 3, F, N), M (..., F, 3), var_k and frame_mask (..., F).
+    With u_n = P_n.M, m2 = max(|M|^2, 1e-12) and r_n = u_n^2 k^2 / m2,
+    the loss is sum_n log1p(r_n) and its gradient
+    2 k^2 / m2 * sum_n u_n / (1 + r_n) * (P_n - u_n M / m2) (the second
+    term vanishes where the floor holds m2). Masked frames give 0 and 0.
+    Returns losses (..., F) and gradients (..., F, 3).
+    """
+    PM = _pm(P, M)
+    msq = torch.sum(M * M, dim=-1)
+    M2 = torch.clamp(msq, min=1e-12)[..., None]
+    k2 = (var_k * var_k)[..., None]
+    r = PM * PM * k2 / M2
+    loss = torch.sum(torch.log1p(r), dim=-1) * frame_mask
+    c = PM / (1.0 + r)  # (..., F, N)
+    cP = torch.stack([torch.sum(c * Pc, dim=-1) for Pc in P.unbind(-3)], dim=-1)
+    cu = torch.sum(c * PM, dim=-1, keepdim=True)
+    radial = torch.where((msq > 1e-12)[..., None], cu * M / M2, 0.0)
+    grad = (2.0 * k2 / M2) * (cP - radial) * frame_mask[..., None]
+    return loss, grad
+
+
+# --- batched L-BFGS over frames --------------------------------------------
+
+#: trips of batched_lbfgs's loop and value-and-gradient evaluations (the
+#: start's and each line-search trial's) since the last reset, summed over
+#: calls; counted on the host, no device sync
+LBFGS_COUNTS = {"trips": 0, "evaluations": 0}
+
+
+def reset_lbfgs_counters() -> None:
+    for name in LBFGS_COUNTS:
+        LBFGS_COUNTS[name] = 0
+
+
+class _LBFGSState(NamedTuple):
+    x: torch.Tensor        # (B, d)
+    f: torch.Tensor        # (B,)
+    g: torch.Tensor        # (B, d)
+    S: torch.Tensor        # (B, mem, d) newest first
+    Y: torch.Tensor        # (B, mem, d)
+    rho: torch.Tensor      # (B, mem)
+    hist: torch.Tensor     # (B,) int32 valid history length
+    done: torch.Tensor     # (B,) bool
+
+
+class LBFGSResult(NamedTuple):
+    x: torch.Tensor
+    #: (B,) iterations each lane ran before it was done; the batch's
+    #: loop ran max() of them
+    iterations: torch.Tensor
+
+
+def _two_loop_direction(st: _LBFGSState) -> torch.Tensor:
+    """Classic L-BFGS two-loop recursion, batched. Falls back to
+    steepest descent when there is no history."""
+    mem = st.S.shape[1]
+    valid = (torch.arange(mem, device=st.x.device)[None, :] < st.hist[:, None]).to(st.x.dtype)
+    q = st.g
+    alphas = []
+    for i in range(mem):  # newest -> oldest
+        a = st.rho[:, i] * torch.sum(st.S[:, i] * q, dim=-1) * valid[:, i]
+        q = q - a[:, None] * st.Y[:, i]
+        alphas.append(a)
+    y0y0 = torch.sum(st.Y[:, 0] * st.Y[:, 0], dim=-1)
+    s0y0 = torch.sum(st.S[:, 0] * st.Y[:, 0], dim=-1)
+    gamma = torch.where(st.hist > 0, s0y0 / torch.clamp(y0y0, min=1e-30), 1.0)
+    r = gamma[:, None] * q
+    for i in range(mem - 1, -1, -1):  # oldest -> newest
+        b = st.rho[:, i] * torch.sum(st.Y[:, i] * r, dim=-1) * valid[:, i]
+        r = r + ((alphas[i] - b) * valid[:, i])[:, None] * st.S[:, i]
+    return -r
+
+
+def _push(hist: torch.Tensor, new: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
+    """Where `store`, shift the history (B, mem, ...) one slot older and
+    put `new` (B, ...) in slot 0; elsewhere keep it."""
+    rolled = torch.cat([new[:, None], hist[:, :-1]], dim=1)
+    return torch.where(store.view(-1, *([1] * (hist.dim() - 1))), rolled, hist)
+
+
+def _all_done(done: torch.Tensor, i: int, check_every: int) -> bool:
+    """The loops' exit test, read on the host every `check_every` trips."""
+    return i % check_every == 0 and bool(done.all())
+
+
+def batched_lbfgs(
+    value_and_grad_fn,
+    x0: torch.Tensor,
+    max_iters: int = LBFGS_MAX_ITERS,
+    min_grad_norm: float = LBFGS_MIN_GRAD,
+    mem: int = LBFGS_MEM,
+    ls_trials: int = 50,
+    armijo_c1: float = 1e-4,
+    wolfe_c2: float = 0.9,
+    frozen: torch.Tensor | None = None,
+    check_every: int = 1,
+) -> LBFGSResult:
+    """Minimize B independent small problems at once (the role of the
+    reference's per-frame ensmallen L-BFGS, ref :262-296): every lane
+    steps in lockstep and a lane that is done freezes.
+
+    value_and_grad_fn: (B, d) -> ((B,), (B, d)), safe on frozen lanes.
+    The line search follows ensmallen's strong-Wolfe policy from t = 1
+    (c1 1e-4, c2 0.9; the step widens x2.1 while the curvature is too
+    negative and halves on an Armijo or overshoot failure; <= ls_trials
+    trials; a step outside [1e-20, 1e20] freezes the lane), as
+    rssync_tpu's batched_lbfgs and the golden shim
+    (golden/shim/ensmallen_bits/lbfgs/lbfgs.hpp) do. `frozen` (B,)
+    marks lanes done at entry.
+
+    The loops end when every lane is done (or at max_iters / ls_trials
+    trips), which costs a host sync per test. They test it every
+    `check_every` trips: a trip after every lane is done changes
+    nothing (a lane that accepted keeps its step, a done lane its
+    state), so the iterates do not depend on it.
+    """
+    B, d = x0.shape
+    f0, g0 = value_and_grad_fn(x0)
+    LBFGS_COUNTS["evaluations"] += 1
+    done = safe_norm(g0, dim=-1) < min_grad_norm
+    if frozen is not None:
+        done = done | frozen
+    st = _LBFGSState(
+        x=x0, f=f0, g=g0,
+        S=x0.new_zeros((B, mem, d)), Y=x0.new_zeros((B, mem, d)),
+        rho=x0.new_zeros((B, mem)),
+        hist=torch.zeros(B, dtype=torch.int32, device=x0.device),
+        done=done,
+    )
+    iters = torch.zeros(B, dtype=torch.int32, device=x0.device)
+    for it in range(max_iters):
+        if _all_done(st.done, it, check_every):
+            break
+        LBFGS_COUNTS["trips"] += 1
+        d_dir = _two_loop_direction(st)
+        gd = torch.sum(st.g * d_dir, dim=-1)
+        # non-descent direction -> steepest descent restart
+        bad = gd >= 0.0
+        d_dir = torch.where(bad[:, None], -st.g, d_dir)
+        gd = torch.where(bad, -torch.sum(st.g * st.g, dim=-1), gd)
+
+        # strong-Wolfe search from t = 1; the accepted trial's value and
+        # gradient are the new point's (the same expression, evaluated
+        # once)
+        t = x0.new_ones(B)
+        accepted = st.done
+        t_acc = x0.new_zeros(B)
+        f_acc, g_acc = st.f, st.g
+        for k in range(ls_trials):
+            if _all_done(accepted, k, check_every):
+                break
+            f_try, g_try = value_and_grad_fn(st.x + t[:, None] * d_dir)
+            LBFGS_COUNTS["evaluations"] += 1
+            armijo_fail = f_try > st.f + armijo_c1 * t * gd
+            gd_new = torch.sum(g_try * d_dir, dim=-1)
+            too_negative = gd_new < wolfe_c2 * gd            # -> widen x2.1
+            overshoot = gd_new > -wolfe_c2 * gd              # -> shrink x0.5
+            ok = ~armijo_fail & ~too_negative & ~overshoot & ~accepted
+            t_acc = torch.where(ok, t, t_acc)
+            f_acc = torch.where(ok, f_try, f_acc)
+            g_acc = torch.where(ok[:, None], g_try, g_acc)
+            t_new = torch.where(accepted | ok, t,
+                                torch.where(armijo_fail | overshoot, t * 0.5, t * 2.1))
+            # a lane whose step leaves [1e-20, 1e20] has failed: freeze
+            # it with t_acc = 0 (it is then done)
+            out = (t_new < 1e-20) | (t_new > 1e20)
+            accepted = accepted | ok | out
+            t = t_new
+        took = accepted & ~st.done & (t_acc != 0.0)
+        step_t = torch.where(took, t_acc, 0.0)
+
+        x_new = st.x + step_t[:, None] * d_dir
+        f_new = torch.where(took, f_acc, st.f)
+        g_new = torch.where(took[:, None], g_acc, st.g)
+        s = x_new - st.x
+        y = g_new - st.g
+        sy = torch.sum(s * y, dim=-1)
+        was_done = st.done
+        store = (sy > 1e-10) & ~was_done
+        iters = iters + (~was_done).to(torch.int32)
+        g_out = torch.where(was_done[:, None], st.g, g_new)
+        st = _LBFGSState(
+            x=torch.where(was_done[:, None], st.x, x_new),
+            f=torch.where(was_done, st.f, f_new),
+            g=g_out,
+            S=_push(st.S, s, store), Y=_push(st.Y, y, store),
+            rho=_push(st.rho, 1.0 / torch.clamp(sy, min=1e-30), store),
+            hist=torch.where(store, torch.clamp(st.hist + 1, max=mem), st.hist),
+            done=was_done | (safe_norm(g_out, dim=-1) < min_grad_norm) | (step_t == 0.0),
+        )
+    return LBFGSResult(st.x, iters)
 
 
 # --- batched IRLS motion refinement ----------------------------------------
@@ -196,6 +399,10 @@ class SyncResult(NamedTuple):
     #: per-iteration stderr line (ref :330)
     trace_delay: torch.Tensor
     trace_step: torch.Tensor
+    #: (W,) motion iterations each window ran, summed over the outer
+    #: iterations: IRLS rounds, or the L-BFGS loop's trips (the most any
+    #: of the window's frames took, as rssync_tpu's per-window loop runs)
+    motion_iterations: torch.Tensor
 
 
 def _var_k(P: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -239,12 +446,16 @@ def _loss_and_grad(table, wins, x0, M, var_k):
 def sync_loop(
     table: SplineTable, wins: TrackWindow, delay0: torch.Tensor,
     M0: torch.Tensor, var_k: torch.Tensor, centers: torch.Tensor,
-    radius: torch.Tensor,
+    radius: torch.Tensor, motion_opt: str = "irls",
 ) -> SyncResult:
     """The outer Sync loop over a stack of W windows, from initial
     delays delay0 (W,) and motions M0 (W, F, 3). Runs until every
     window is done or OUTER_MAX_ITERS; the done test costs one host
-    sync per iteration."""
+    sync per iteration. motion_opt: "irls" (motion_irls) or "lbfgs"
+    (batched_lbfgs over every frame of every window, the frames of
+    finished windows frozen), as rssync_tpu/core/sync.py:471-474."""
+    if motion_opt not in ("irls", "lbfgs"):
+        raise ValueError(f"unknown motion_opt {motion_opt!r}")
     W = delay0.shape[0]
     dtype, dev = delay0.dtype, delay0.device
     delay = delay0.clone()
@@ -255,6 +466,7 @@ def sync_loop(
     iters = torch.zeros(W, dtype=torch.int32, device=dev)
     tr_d = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
     tr_s = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
+    motion_iters = torch.zeros(W, dtype=torch.int32, device=dev)
 
     for i in range(OUTER_MAX_ITERS):
         if bool(done.all()):
@@ -262,7 +474,12 @@ def sync_loop(
         active = ~done
         # 1. motion refinement at the current delay
         P = compute_problem(table, wins, delay)
-        M_new = motion_irls(P, M, var_k)
+        if motion_opt == "irls":
+            M_new = motion_irls(P, M, var_k)
+            motion_iters = motion_iters + MOTION_IRLS_ITERS * active.to(torch.int32)
+        else:
+            M_new, lane_iters = _motion_lbfgs(P, M, var_k, wins.frame_mask, done)
+            motion_iters = motion_iters + lane_iters.amax(dim=-1)
         # 2. Nesterov-lookahead backtracked delay step (ref :298-305)
         x0 = delay - DELAY_MOMENTUM * v
         fval, grad = _loss_and_grad(table, wins, x0, M_new, var_k)
@@ -285,16 +502,33 @@ def sync_loop(
     return SyncResult(
         cost=window_loss(table, wins, delay, M, var_k), delay=delay,
         iterations=iters, trace_delay=tr_d, trace_step=tr_s,
+        motion_iterations=motion_iters,
     )
+
+
+def _motion_lbfgs(P, M, var_k, frame_mask, window_done):
+    """batched_lbfgs over every frame of W windows at fixed rows P
+    (W, 3, F, N); the frames of windows in `window_done` (W,) are frozen.
+    Returns M (W, F, 3) and each lane's iterations (W, F)."""
+    W, F = var_k.shape
+
+    def vg(x):
+        f, g = frame_losses_and_grads(P, x.view(W, F, 3), var_k, frame_mask)
+        return f.reshape(-1), g.reshape(-1, 3)
+
+    res = batched_lbfgs(vg, M.reshape(-1, 3),
+                        frozen=window_done[:, None].expand(W, F).reshape(-1))
+    return res.x.view(W, F, 3), res.iterations.view(W, F)
 
 
 def sync_window(
     table: SplineTable, win: TrackWindow, initial_delay, search_center,
-    search_radius, generator: torch.Generator,
+    search_radius, generator: torch.Generator, motion_opt: str = "irls",
 ) -> SyncResult:
     """Full Sync of one window (ref core_private.cpp:211-334). Returns
     scalar cost, delay and iteration count plus (OUTER_MAX_ITERS,)
-    traces."""
+    traces. motion_opt: "irls" (default) or "lbfgs", the reference's
+    per-frame L-BFGS run to MinGradientNorm (see sync_loop)."""
     dev = win.counts.device
     f32 = dict(dtype=torch.float32, device=dev)
     delay0 = torch.as_tensor(initial_delay, **f32)
@@ -303,6 +537,6 @@ def sync_window(
     res = sync_loop(
         table, win.map(lambda x: x[None]), delay0[None], M0[None], var_k[None],
         torch.as_tensor(search_center, **f32)[None],
-        torch.as_tensor(search_radius, **f32)[None],
+        torch.as_tensor(search_radius, **f32)[None], motion_opt,
     )
     return SyncResult(*(x[0] for x in res))

@@ -98,12 +98,15 @@ def batched_presync(
 def batched_sync(
     table: SplineTable, wins: TrackWindow, initial_delays: torch.Tensor,
     search_centers: torch.Tensor, search_radius, generator: torch.Generator,
+    motion_opt: str = "irls",
 ) -> SyncResult:
     """Fine Sync over the window axis. initial_delays, search_centers:
-    (W,). GuessMotion of every window is one batched scoring call."""
+    (W,). GuessMotion of every window is one batched scoring call.
+    motion_opt: "irls" or "lbfgs" (core/sync.py::sync_loop); rssync_tpu
+    computes the same as a vmap of its sync_window."""
     radius = torch.as_tensor(
         search_radius, dtype=initial_delays.dtype, device=initial_delays.device
     ).expand(initial_delays.shape)
     with torch.no_grad():
         M0, var_k = init_motion_batched(table, wins, initial_delays, generator)
-    return sync_loop(table, wins, initial_delays, M0, var_k, search_centers, radius)
+    return sync_loop(table, wins, initial_delays, M0, var_k, search_centers, radius, motion_opt)

@@ -3,8 +3,9 @@ rendered on the device.
 
 Port of rssync_tpu/testing/synthvideo.py without its files: the frames
 come back as a (T, H, W) uint8 tensor and the gyro log as arrays, in
-place of an MP4, a .gcsv and a lens file. For one seed the trajectory,
-texture, lens and gyro rates are those of rssync_tpu's `make_clip`.
+place of an MP4, a .gcsv and a lens file (`write_gcsv` writes the log in
+that .gcsv's layout). For one seed the trajectory, texture, lens and gyro
+rates are those of rssync_tpu's `make_clip`.
 
 Scene: a camera with Kannala-Brandt fisheye optics rotates along a
 smooth Euler-angle sinusoid while observing a procedural 3-D texture
@@ -181,3 +182,14 @@ def make_clip(
         gyro_rate=gyro_rate,
         orient="xyz",
     )
+
+
+def write_gcsv(path: str, gyro_ts: np.ndarray, gyro_rates: np.ndarray) -> None:
+    """Write a gyro log as a GyroFlow .gcsv in rssync_tpu's make_clip
+    layout (rssync_tpu/testing/synthvideo.py:187-196): ms timestamps to
+    6 decimals (tscale 0.001), rad/s rates to 9 decimals (gscale 1)."""
+    with open(path, "w") as f:
+        f.write("GYROFLOW IMU LOG\nversion,1.3\nid,synth\n")
+        f.write("tscale,0.001\ngscale,1.0\nascale,1.0\nt,gx,gy,gz\n")
+        for t, (gx, gy, gz) in zip(gyro_ts, gyro_rates):
+            f.write(f"{t * 1000:.6f},{gx:.9f},{gy:.9f},{gz:.9f}\n")

@@ -1,1 +1,2 @@
-"""Invariant guards (the reference's panic layer)."""
+"""Invariant guards (the reference's panic layer), stage timings and the
+track cache."""

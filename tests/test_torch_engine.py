@@ -171,6 +171,58 @@ def test_stages_chain_to_run_batched(scene):
     assert [1000.0 * d for d in results[-1].delay.double().tolist()] == want
 
 
+#: tests/test_edgecases.py's scene: 8 frames x 40 points, delay 20 ms
+EDGE_SCENE = dict(seed=3, true_delay=0.02, n_frames=8, n_points=40)
+
+
+@pytest.fixture(scope="module")
+def edge_scene():
+    from synthetic import make_scene
+
+    return make_scene(**EDGE_SCENE)
+
+
+def _edge_problem(scene, mangle=None):
+    sp = create_sync_problem(seed=0, device="cpu")
+    sp.set_gyro_quaternions(scene.quats_wxyz, scene.gyro_rate, float(scene.gyro_ts[0]))
+    for f, d in scene.frames.items():
+        sp.set_track_result(f, *(mangle(f, d) if mangle else d))
+    return sp
+
+
+def test_sparse_frame_counts_amid_valid(edge_scene):
+    """Frames carrying 0 or 1 correspondences between full frames are
+    masked out; the other frames still recover the delay
+    (tests/test_edgecases.py:55)."""
+
+    def mangle(f, d):
+        if f == 2:  # one lone feature
+            return tuple(x[:1] for x in d)
+        if f == 4:  # no features at all
+            return tuple(x[:0] for x in d)
+        return d
+
+    sp = _edge_problem(edge_scene, mangle)
+    cost, delay = sp.pre_sync(0.0, 0, 8, 0.002, 0.05)
+    assert np.isfinite(cost)
+    assert abs(delay - EDGE_SCENE["true_delay"]) < 0.004
+    cost, delay = sp.sync(delay, 0, 7, 0.0, 0.05)
+    assert np.isfinite(cost) and np.isfinite(delay)
+    assert abs(delay - EDGE_SCENE["true_delay"]) < 0.001
+
+
+def test_zero_flow_window_finite(edge_scene):
+    """rays_b == rays_a everywhere (a static clip): the epipolar rows
+    degenerate, but costs stay finite and Sync ends inside its radius
+    guard instead of producing NaN (tests/test_edgecases.py:76)."""
+    sp = _edge_problem(edge_scene, lambda f, d: (d[0], d[1], d[2], d[2]))
+    cost, delay = sp.pre_sync(0.0, 0, 8, 0.002, 0.05)
+    assert np.isfinite(cost) and np.isfinite(delay)
+    cost, delay = sp.sync(0.0, 0, 7, 0.0, 0.05)
+    assert np.isfinite(cost) and np.isfinite(delay)
+    assert abs(delay) <= 0.05 + 1e-6  # inside the search radius
+
+
 def test_profile_busy_time_is_a_union():
     from rssync_tpu_torch.testing.profile_engine import _union_us
 
@@ -178,9 +230,14 @@ def test_profile_busy_time_is_a_union():
     assert _union_us([(5.0, 9.0), (0.0, 2.0), (1.0, 3.0), (6.0, 7.0)]) == 7.0
 
 
-def test_port_imports_neither_jax_nor_rssync_tpu():
-    """Every port module plus one engine call leave JAX and the JAX
-    package out of the interpreter."""
+def test_port_imports_neither_jax_nor_rssync_tpu(tmp_path):
+    """Every port module, one engine call, a file intake through
+    fill_gyro and one L-BFGS Sync window leave JAX and the JAX package
+    out of the interpreter."""
+    gcsv = tmp_path / "log.gcsv"
+    gcsv.write_text("GYROFLOW IMU LOG\ntscale,0.001\ngscale,0.001\nt,gx,gy,gz\n" + "".join(
+        f"{i * 5},{300 * np.sin(i / 40):.0f},{200 * np.cos(i / 30):.0f},{100 * np.sin(i / 20):.0f}\n"
+        for i in range(400)))
     pkg = Path(__file__).resolve().parent.parent / "rssync_tpu_torch"
     mods = sorted(
         ".".join(p.relative_to(pkg.parent).with_suffix("").parts).removesuffix(".__init__")
@@ -195,6 +252,14 @@ def test_port_imports_neither_jax_nor_rssync_tpu():
         "                           sync_window=6, syncpoint_distance=10)",
         "sp = create_sync_problem(device='cpu'); prob.feed(sp)",
         "print(sp.pre_sync(0.0, 0, 6, 0.01, 0.05))",
+        "import torch",
+        "from rssync_tpu_torch.core.sync import sync_window",
+        "res = sync_window(sp.spline_table, sp.build_window(0, 6, closed=True), 0.0, 0.0, 0.05,",
+        "                  torch.Generator().manual_seed(0), motion_opt='lbfgs')",
+        "assert int(res.motion_iterations) > 0, res",
+        "from rssync_tpu_torch.pipeline.recipe import fill_gyro",
+        f"fill_gyro(sp, {str(gcsv)!r}, 'xyz')",
+        "assert sp._sample_rate == 200.0",
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))",
         "       or m == 'rssync_tpu' or m.startswith('rssync_tpu.')]",
         "assert not bad, bad",
