@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port once on an NVIDIA card: the sync engine,
 the LK tracker, rendered frames -> tracks -> sync end to end, telemetry
-files -> sync, and the reference engine's golden data.
+files -> sync, the reference engine's golden data, and the recipe
+pipeline (video file -> CSV, its CLI) at full width.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -102,19 +103,54 @@ Phases (any failure exits non-zero and prints no result line):
     spline samples (<= 2e-5), 4-pass IRLS Sync (<= 2.5e-4 s of the
     reference, <= 5e-4 s of the truth), 4-pass L-BFGS trajectories
     (iterates and steps <= 3e-5, 1e-4 for "interp"; iteration counts
-    within 1); every scene's largest error printed beside its limit.
+    within 1); every scene's largest error printed beside its limit;
+16. the recipe path at full width: phase 8's clip written as rssync_tpu's
+    make_clip writes its files (an mp4 through cv2's mp4v writer, the
+    .gcsv, the lens file) and a recipe (frame_range [0, 479], sync_window
+    60, syncpoint_distance 120, initial_guess 1000 ms, simple PreSync at
+    phase 8's radius and step), decoded by the port's own decode layer
+    and synced by (a) `run_recipe` batched (its Timings report), (b)
+    `run_recipe` sequential, (c) the CLI's `main` twice with --trace and
+    a track cache (the second run a cache hit) and (d) `track_frames` on
+    the four windows against `track_clip` on the same decoded frames,
+    the counters zeroed around each ((a) prints the tracking stage's
+    decode, pad, upload and track + emit seconds a block): (a) and (b)
+    within 0.5 ms of the truth and 0.05 ms of each other, (a) within
+    0.1 ms of phase 8's run_batched on the same decoded frames and
+    0.15 ms of phase 8's delays on the rendered frames (mp4v is lossy);
+    debug.csv 200 rows with its minimum within 5 ms of the truth; the
+    CLI's CSVs equal (a)'s and its trace blocks the Sync iterations;
+    (d) bit-identical; K3 and K2 launched in (a), K1 in (a)'s debug.csv
+    and in (b);
+17. guess-orient on phase 16's recipe over frames (0, 60): the clip's
+    orientation first, its cost under 0.9 x the runner-up's; then
+    run_multi_recipes on phase 16's recipe and a second rendered clip
+    (1920x1080, 240 frames at 30 fps, delay -11.7 ms, window 48, its own
+    PreSync radius and step): every delay within 0.5 ms of its clip's
+    truth. Counters zeroed around each; K2 and K3 launched in both;
+18. K1/K2/K3 against their plain versions, bit-equal, at every shape a
+    run of phases 16-17 launched them at that phases 3, 10 and 14 did
+    not already compare (the counters' launch shapes are read after each
+    run of those phases).
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
 shape its main path launched it at, and `shapes` holds the measurements
-at every shape. `path` names the path that launched it. The last line
-is {"ok": true, "device": {...}}.
+at every shape (a row from phase 18 names the runs that launched its
+shape under `path`). `path` names the path that launched it; the
+kernels of the engine and tracker paths also carry `recipe_launches`,
+their launches in phase 16 (a). The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -126,6 +162,17 @@ OFFSET_TOL_MS = 0.5
 CPU_AGREE_MS = 0.1
 #: file intake vs the in-memory intake of the same log (ms)
 FILE_AGREE_MS = 0.01
+#: the recipe path: batched vs sequential (tests/test_pipeline.py's
+#: tolerance) and vs phase 8's run_batched on the rendered frames (ms);
+#: debug.csv's cost minimum vs the truth (s)
+SEQ_AGREE_MS = 0.05
+RECIPE_AGREE_MS = 0.1
+SURFACE_TOL_S = 0.005
+#: the recipe path vs phase 8's run_batched on the rendered frames (ms):
+#: mp4v's lossy coding moves the tracks, and the delays with them, by
+#: 0.1043 ms on an H100 (the same in every run: seeded RANSAC, the same
+#: frames); the limit leaves that reading a margin of ~50 %
+RENDER_AGREE_MS = 0.15
 #: this checkout's root: tests/ (make_scene, the GPMF writer, the golden
 #: data) and native/gpmf
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -528,6 +575,308 @@ def compare_patches(np, torch, PT, shape, dev, seed, flush):
     return out
 
 
+class TrackRecorder:
+    """A problem that keeps what `set_track_result` is given."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def set_track_result(self, frame, *data):
+        self.calls[int(frame)] = data
+
+
+def collect_shapes(seen: dict, label: str, *counters) -> None:
+    """Add every shape in the counters' LAUNCH_SHAPES to `seen`
+    (kernel -> shape -> the labels of the runs that launched it)."""
+    for c in counters:
+        for name, shapes in c.LAUNCH_SHAPES.items():
+            for sh in shapes:
+                seen.setdefault(name, {}).setdefault(sh, []).append(label)
+
+
+def run_cli(CLI, argv) -> tuple[str, str]:
+    """`python -m rssync_tpu_torch.pipeline` in this process: (stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = CLI.main(argv)
+    check(rc == 0, f"the CLI exited {rc}")
+    return out.getvalue(), err.getvalue()
+
+
+def trace_windows(err: str) -> list[tuple[int, int, int, int]]:
+    """(pass, window, iterations in the header, delay-step lines after
+    it) of every `# pass` block the CLI's --trace printed."""
+    lines = err.splitlines()
+    heads = [i for i, ln in enumerate(lines) if ln.startswith("# pass ")]
+    out = []
+    for k, i in enumerate(heads):
+        _, _, pas, _, win, n, _ = lines[i].replace("(", "").split()
+        end = heads[k + 1] if k + 1 < len(heads) else len(lines)
+        body = [ln for ln in lines[i + 1 : end] if len(ln.split()) == 2]
+        out.append((int(pas), int(win), int(n), len(body)))
+    return out
+
+
+def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timings,
+                 write_clip_files, radius_ms, step_ms, tmp, seen) -> tuple[dict, dict, str]:
+    """Phase 16: phase 8's clip written as rssync_tpu's make_clip writes
+    its files (an mp4 through cv2's mp4v writer, the .gcsv, the lens
+    file) and synced from them by the port's front door: (a)
+    run_recipe batched, (b) run_recipe sequential, (c) the CLI twice
+    with --trace and a track cache (the second run a cache hit), (d)
+    track_frames against track_clip on the decoded frames. Every run
+    decodes the mp4 with the port's own decode layer (cv2 is on the
+    card's host): nothing stands in for it. Files go to `tmp`. The
+    shapes every run launched K1/K2/K3 at go into `seen`
+    (collect_shapes). Returns the kernels' launches in (a), (a)'s recipe
+    and the track cache."""
+    import cv2
+
+    t1 = time.perf_counter()
+    files = write_clip_files(clip, tmp)
+    t_write = time.perf_counter() - t1
+    truth_ms = 1000 * clip.true_delay
+    sync_window = 60
+
+    def recipe(name):
+        return {
+            "input": {
+                "video_path": files.video_path, "gyro_path": files.gyro_path,
+                "gyro_orientation": clip.orient, "frame_range": [0, clip.n_frames - 1],
+                "lens_profile": {"path": files.lens_path, "name": files.lens_name},
+                "initial_guess": 1000.0, "use_simple_presync": True,
+                "simple_presync_radius": radius_ms, "simple_presync_step": step_ms,
+            },
+            "params": {"sync_window": sync_window, "syncpoints_format": "auto",
+                       "syncpoint_distance": 120},
+            "output": {"csv_path": os.path.join(tmp, f"{name}.csv"),
+                       "debug_csv_path": os.path.join(tmp, f"{name}_debug.csv")},
+        }
+
+    print(f"# recipe path frame source: {files.video_path} ({os.path.getsize(files.video_path)}"
+          f" B, {clip.n_frames} frames {clip.width}x{clip.height} through cv2 "
+          f"{cv2.__version__}'s mp4v writer in {t_write:.2f} s), decoded by the port's "
+          f"VideoSource / DecodePool; nothing substituted", flush=True)
+
+    def zero():
+        S.reset_launch_counters()
+        ST.reset_launch_counters()
+
+    def counts():
+        return {**S.LAUNCHES, **ST.LAUNCHES}
+
+    # (a) batched, with the tracking stage's per-block lines
+    zero()
+    timings = Timings()
+    os.environ["RSSYNC_TRACK_TIMING"] = "1"
+    t1 = time.perf_counter()
+    try:
+        res_a = RC.run_recipe(recipe("a"), batched=True, timings=timings)
+    finally:
+        del os.environ["RSSYNC_TRACK_TIMING"]
+    t_a = time.perf_counter() - t1
+    launches_a = counts()
+    collect_shapes(seen, "recipe (a)", S, ST)
+    print(f"# (a) run_recipe batched: {t_a:.2f} s; launches {launches_a}; delays "
+          f"{[round(d, 4) for d in res_a.delays_ms]} ms, truth {truth_ms:.4f} ms ({card})",
+          flush=True)
+    for line in timings.report().splitlines():
+        print(f"#     {line}", flush=True)
+    # (b) sequential
+    zero()
+    timings_b = Timings()
+    t1 = time.perf_counter()
+    res_b = RC.run_recipe(recipe("b"), batched=False, timings=timings_b)
+    t_b = time.perf_counter() - t1
+    launches_b = counts()
+    collect_shapes(seen, "recipe (b)", S, ST)
+    print(f"# (b) run_recipe sequential: {t_b:.2f} s (sync_all "
+          f"{timings_b.stages['sync_all'].total_s:.2f} s, tracking "
+          f"{timings_b.stages['tracking'].total_s:.2f} s); launches {launches_b}; delays "
+          f"{[round(d, 4) for d in res_b.delays_ms]} ms ({card})", flush=True)
+    # (c) the CLI twice, the second run from the track cache
+    cache = os.path.join(tmp, "track_cache")
+    results = []
+    real_sync_stage = RC.sync_stage
+
+    def recording_sync_stage(*a, **k):
+        out = real_sync_stage(*a, **k)
+        results.append(out)
+        return out
+
+    RC.sync_stage = recording_sync_stage
+    cli = []
+    try:
+        for name in ("c1", "c2"):
+            path = os.path.join(tmp, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(recipe(name), f)
+            zero()
+            t1 = time.perf_counter()
+            out, err = run_cli(CLI, [path, "--trace", "--track-cache", cache])
+            cli.append((time.perf_counter() - t1, out, err, counts(),
+                        open(recipe(name)["output"]["csv_path"]).read()))
+            collect_shapes(seen, f"recipe ({name})", S, ST)
+    finally:
+        RC.sync_stage = real_sync_stage
+    print(f"# (c) CLI --trace --track-cache: {cli[0][0]:.2f} s (tracks computed, launches "
+          f"{cli[0][3]}), {cli[1][0]:.2f} s (cache hit, launches {cli[1][3]}) ({card})",
+          flush=True)
+    # (d) track_frames against track_clip on the decoded frames
+    ranges = RC.window_pair_ranges(res_a.syncpoints, sync_window)
+    src = TR.VideoSource(files.video_path)
+    n_dec = ranges[-1][1] + 1
+    frames = torch.zeros((n_dec, clip.height, clip.width), dtype=torch.uint8, device=dev)
+    ts = np.zeros(n_dec)
+    for b, e in ranges:
+        for fr in src.frames(b, e + 1):
+            frames[fr.index] = torch.from_numpy(fr.gray).to(dev)
+            ts[fr.index] = fr.timestamp
+    src.close()
+    lens = RC.load_lens_profile(files.lens_path, files.lens_name)
+    got, want = TrackRecorder(), TrackRecorder()
+    zero()
+    t1 = time.perf_counter()
+    TR.track_frames(got, lens, files.video_path, 0, clip.n_frames - 1, ranges=ranges)
+    torch.cuda.synchronize()
+    t_tf = time.perf_counter() - t1
+    launches_d = counts()
+    collect_shapes(seen, "recipe (d)", S, ST)
+    TR.track_clip(want, lens, frames, ts, ranges)
+    same = sorted(got.calls) == sorted(want.calls) == [p for b, e in ranges
+                                                       for p in range(b, e)]
+    same = same and all(np.array_equal(x, y) for f, d in want.calls.items()
+                        for x, y in zip(got.calls[f], d))
+    # phase 8's path (in-memory gyro, run_batched) on the decoded frames'
+    # tracks: the recipe's inputs, where phase 8 read the rendered frames
+    sp = RC.SyncProblem(seed=0, device=dev)
+    RC.set_gyro_rates(sp, clip.gyro_ts, clip.gyro_rates, clip.orient)
+    for f, d in want.calls.items():
+        sp.set_track_result(f, *d)
+    decoded_ms = np.asarray(RC.run_batched(sp, res_a.syncpoints, sync_window, 1.0, True,
+                                           radius_ms, step_ms))
+    print(f"# (d) track_frames on {len(ranges)} windows ({len(got.calls)} pairs): {t_tf:.2f} s, "
+          f"launches {launches_d}; frame data bit-identical to track_clip on the decoded "
+          f"frames: {same} ({card})", flush=True)
+
+    # checks
+    a, b = np.asarray(res_a.delays_ms), np.asarray(res_b.delays_ms)
+    check(res_a.syncpoints == res_b.syncpoints == [0, 120, 240, 360],
+          f"recipe syncpoints {res_a.syncpoints} / {res_b.syncpoints}")
+    err_a, err_b = np.abs(a - truth_ms), np.abs(b - truth_ms)
+    ab, a8 = float(np.abs(a - b).max()), float(np.abs(a - phase8_ms).max())
+    a_dec = float(np.abs(a - decoded_ms).max())
+    dbg = np.loadtxt(res_a.debug_csv_path, delimiter=",", ndmin=2)
+    surface = abs(dbg[int(np.argmin(dbg[:, 1])), 0] - clip.true_delay)
+    print(f"# recipe checks: errors (a) {err_a.round(4).tolist()} (b) {err_b.round(4).tolist()} "
+          f"ms (<= {OFFSET_TOL_MS}); (a) vs (b) {ab:.4f} ms (<= {SEQ_AGREE_MS}); (a) vs "
+          f"phase 8's run_batched on the decoded frames {a_dec:.4f} ms (<= "
+          f"{RECIPE_AGREE_MS}); on the rendered frames, before mp4v coding, {a8:.4f} ms (<= "
+          f"{RENDER_AGREE_MS}); "
+          f"debug.csv {dbg.shape[0]} rows, "
+          f"minimum {1000 * surface:.3f} ms from the truth (<= {1000 * SURFACE_TOL_S:g})",
+          flush=True)
+    check(bool(np.isfinite(err_a).all()) and err_a.max() <= OFFSET_TOL_MS,
+          f"recipe (a) offset error {err_a.max():.4f} ms")
+    check(bool(np.isfinite(err_b).all()) and err_b.max() <= OFFSET_TOL_MS,
+          f"recipe (b) offset error {err_b.max():.4f} ms")
+    check(ab <= SEQ_AGREE_MS, f"batched and sequential recipes differ by {ab:.4f} ms")
+    check(a_dec <= RECIPE_AGREE_MS,
+          f"recipe and phase 8's path on the decoded frames differ by {a_dec:.4f} ms")
+    check(a8 <= RENDER_AGREE_MS,
+          f"recipe and phase 8's run_batched on the rendered frames differ by {a8:.4f} ms")
+    check(dbg.shape == (200, 2) and surface <= SURFACE_TOL_S, "debug.csv: bad surface")
+    a_csv = open(res_a.csv_path).read()
+    check(cli[0][4] == cli[1][4] == a_csv, "the CLI's CSVs differ from each other or from (a)")
+    check(cli[0][1].endswith(a_csv) and cli[1][1].endswith(a_csv),
+          "the CLI's stdout does not end with the CSV")
+    for k, (_, _, err, _, _) in enumerate(cli):
+        blocks = trace_windows(err)
+        want_blocks = [(i, p, int(r.iterations[w]), int(r.iterations[w]))
+                       for i, r in enumerate(results[k]) for w, p in enumerate(res_a.syncpoints)]
+        check(blocks == want_blocks, f"CLI run {k + 1}: trace blocks {blocks} != {want_blocks}")
+    check(cli[1][3]["gather_strips"] == 0, "the second CLI run tracked: no cache hit")
+    check(same, "track_frames differs from track_clip on the decoded frames")
+    check(launches_a["gather_strips"] > 0, "recipe (a): K3 was not launched")
+    check(launches_a["score_quartile_batched"] > 0, "recipe (a): K2 was not launched")
+    check(launches_a["score_quartile"] > 0, "recipe (a): K1 (debug.csv) was not launched")
+    check(launches_b["score_quartile"] > 0, "recipe (b): K1 was not launched")
+    check(launches_d["gather_strips"] > 0, "track_frames: K3 was not launched")
+    print("# recipe " + json.dumps({
+        "card": card, "stages_a": timings.as_dict(), "stages_b": timings_b.as_dict(),
+        "a_s": t_a, "b_s": t_b, "cli_s": [c[0] for c in cli], "track_frames_s": t_tf,
+        "write_mp4_s": t_write, "delays_a_ms": res_a.delays_ms,
+        "delays_b_ms": res_b.delays_ms, "truth_ms": truth_ms,
+        "phase8_decoded_ms": decoded_ms.tolist(), "phase8_rendered_ms": phase8_ms.tolist(),
+        "launches_a": launches_a, "launches_b": launches_b}), flush=True)
+    return launches_a, recipe("a"), cache
+
+
+def guess_multi_phase(np, torch, card, clip, recipe, cache, S, ST, RC, GO, make_clip,
+                      write_clip_files, tmp, seen) -> None:
+    """Phase 17: guess-orient on phase 16's recipe over frames (0, 60),
+    then run_multi_recipes on phase 16's recipe (its tracks from the
+    phase's track cache) and a second rendered clip with other
+    settings, the counters zeroed just before each and read just after;
+    the shapes each launched K1/K2/K3 at go into `seen`."""
+    S.reset_launch_counters()
+    ST.reset_launch_counters()
+    t1 = time.perf_counter()
+    ranked = GO.run_guess_orient(recipe, frames=(0, 60))
+    t_go = time.perf_counter() - t1
+    go_launches = {**S.LAUNCHES, **ST.LAUNCHES}
+    collect_shapes(seen, "guess-orient", S, ST)
+    print(f"# guess-orient over frames (0, 60), 48 variants: {t_go:.2f} s, launches "
+          f"{go_launches}; top 3 {[(o, round(c, 4)) for c, _, o in ranked[:3]]} ({card})",
+          flush=True)
+    check(len(ranked) == 48 and ranked[0][2] == clip.orient,
+          f"guess-orient ranked {ranked[0][2]} first, not {clip.orient}")
+    check(ranked[0][0] < 0.9 * ranked[1][0], "guess-orient: the runner-up is too close")
+    check(go_launches["score_quartile_batched"] > 0, "guess-orient: K2 was not launched")
+    check(go_launches["gather_strips"] > 0, "guess-orient: K3 was not launched")
+
+    t1 = time.perf_counter()
+    # 240 frames at 30 fps: its gyro log spans clip 1's 10 s, so neither
+    # table is edge-padded (stack_problems refuses a padded table's
+    # windows within |initial guess| + radius of its ends, and the
+    # schedules start at frame 0 with a 1 s guess)
+    clip2 = make_clip(seed=9, true_delay=-0.0117, fps=30.0, n_frames=240, width=1920,
+                      height=1080, gyro_rate=200.0, readout=0.01111, pad=2.0)
+    files2 = write_clip_files(clip2, os.path.join(tmp, "clip2"))
+    t_clip2 = time.perf_counter() - t1
+    recipe2 = copy.deepcopy(recipe)
+    recipe2["input"].update(video_path=files2.video_path, gyro_path=files2.gyro_path,
+                            frame_range=[0, clip2.n_frames - 1],
+                            lens_profile={"path": files2.lens_path, "name": files2.lens_name},
+                            simple_presync_radius=150.0, simple_presync_step=3.0)
+    recipe2["params"].update(sync_window=48, syncpoint_distance=60)
+    recipe2["output"] = {"csv_path": os.path.join(tmp, "multi2.csv")}
+    recipe1 = copy.deepcopy(recipe)
+    recipe1["output"] = {"csv_path": os.path.join(tmp, "multi1.csv")}
+    S.reset_launch_counters()
+    ST.reset_launch_counters()
+    t1 = time.perf_counter()
+    res = RC.run_multi_recipes([recipe1, recipe2], track_cache_dir=cache)
+    t_multi = time.perf_counter() - t1
+    launches = {**S.LAUNCHES, **ST.LAUNCHES}
+    collect_shapes(seen, "multi-clip", S, ST)
+    errs = [np.abs(np.asarray(r.delays_ms) - 1000 * c.true_delay)
+            for r, c in zip(res, (clip, clip2))]
+    print(f"# run_multi_recipes: clip 2 ({clip2.width}x{clip2.height}, {clip2.n_frames} frames at "
+          f"{clip2.fps:g} fps, seed 9, truth {1000 * clip2.true_delay:.4f} ms, window 48, PreSync +-150 ms in 3 ms "
+          f"steps) rendered + written {t_clip2:.2f} s; multi run {t_multi:.2f} s (clip 1's "
+          f"tracks from the cache), launches {launches}; syncpoints "
+          f"{[r.syncpoints for r in res]}, errors {[e.round(4).tolist() for e in errs]} ms "
+          f"({card})", flush=True)
+    check([r.syncpoints for r in res] == [[0, 120, 240, 360], [0, 60, 120, 180]],
+          f"multi-clip syncpoints {[r.syncpoints for r in res]}")
+    for e in errs:
+        check(bool(np.isfinite(e).all()) and e.max() <= OFFSET_TOL_MS,
+              f"multi-clip offset error {e.max():.4f} ms")
+    check(launches["score_quartile_batched"] > 0, "run_multi_recipes: K2 was not launched")
+    check(launches["gather_strips"] > 0, "run_multi_recipes: K3 (clip 2's tracks) was not launched")
+
+
 def main() -> None:
     try:
         import torch
@@ -579,7 +928,11 @@ def main() -> None:
             make_engine_problem,
         )
         from rssync_tpu_torch.testing import golden as GD
-        from rssync_tpu_torch.testing.synthvideo import make_clip, write_gcsv
+        from rssync_tpu_torch.pipeline import __main__ as CLI
+        from rssync_tpu_torch.pipeline import guess_orient as GO
+        from rssync_tpu_torch.pipeline import recipe as RC
+        from rssync_tpu_torch.testing.synthvideo import make_clip, write_clip_files, write_gcsv
+        from rssync_tpu_torch.utils.timing import Timings
         from rssync_tpu_torch.testing.texture_scene import render_scene, tracking_error
         from rssync_tpu_torch.utils import track_cache
 
@@ -892,6 +1245,7 @@ def main() -> None:
                   f"{fmt} intake offset error {file_err.max():.4f} ms")
             check(file_agree <= FILE_AGREE_MS,
                   f"{fmt} intake {file_agree:.6f} ms from the in-memory intake")
+    recipe_clip, phase8_ms = clip, e2e_ms  # phase 16 syncs the same clip from files
     del clip, sp
     phase("8 (end to end at full width, in memory and from files)", t0)
 
@@ -1106,6 +1460,48 @@ def main() -> None:
     check(S.LAUNCHES["score_quartile"] > 0, "the golden Sync passes did not launch K1")
     phase("15 (golden data on the card)", t0)
 
+    # -- phase 16: the recipe path at full width ---------------------------
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rssync_recipe_")
+    seen = {}  # kernel -> launch shape -> the phase 16-17 runs that launched it
+    try:
+        recipe_launches, recipe, cache = recipe_phase(
+            np, torch, dev, card, recipe_clip, phase8_ms, S, ST, TR, RC, CLI, Timings,
+            write_clip_files, PRESYNC_RADIUS_MS, PRESYNC_STEP_MS, tmp, seen)
+        phase("16 (the recipe path: run_recipe batched and sequential, the CLI, track_frames)",
+              t0)
+
+        # -- phase 17: guess-orient and multi-clip ----------------------------
+        t0 = time.perf_counter()
+        guess_multi_phase(np, torch, card, recipe_clip, recipe, cache, S, ST, RC, GO,
+                          make_clip, write_clip_files, tmp, seen)
+        phase("17 (guess-orient and multi-clip)", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del recipe_clip
+
+    # -- phase 18: K1/K2/K3 against their plain versions at every shape
+    # phases 16-17 launched them at that phases 3, 10 and 14 did not cover
+    t0 = time.perf_counter()
+    covered = {"score_quartile": set(shapes["score_quartile"]),
+               "score_quartile_batched": set(shapes["score_quartile_batched"]),
+               "gather_strips": set(k3_shapes) | set(e2_shapes)}
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    recipe_rows = {name: [] for name in covered}
+    for name in covered:
+        new = sorted(sh for sh in seen.get(name, {}) if sh not in covered[name])
+        print(f"# {name}: {len(seen.get(name, {}))} launch shapes in phases 16-17, "
+              f"{len(new)} not compared before: {new}", flush=True)
+        for i, sh in enumerate(new):
+            if name == "gather_strips":
+                row = compare_strips(np, torch, ST, sh, dev, 200 + i, False, flush)
+            else:
+                row = compare_score(np, torch, S, name, sh, dev, 200 + i, flush)
+            row["path"] = sorted(set(seen[name][sh]))
+            recipe_rows[name].append(row)
+    del flush
+    phase("18 (K1/K2/K3 vs plain at the recipe paths' shapes)", t0)
+
     csrc = "rssync_tpu_torch/csrc/"
     h = "rssync_tpu_torch.experiments."
     engine, tracker = "engine (run_batched + SyncProblem)", "tracker (lk_track_video_chunked)"
@@ -1118,12 +1514,14 @@ def main() -> None:
     entries = [
         ("score_quartile", "rssync_tpu/ops/pallas_score.py:139", csrc + "score_quartile.cu",
          engine, launches["score_quartile"], compared["score_quartile"],
-         compared["score_quartile"]),
+         compared["score_quartile"] + recipe_rows["score_quartile"]),
         ("score_quartile_batched", "rssync_tpu/ops/pallas_score.py:230",
          csrc + "score_quartile.cu", engine, launches["score_quartile_batched"],
-         compared["score_quartile_batched"], compared["score_quartile_batched"]),
+         compared["score_quartile_batched"],
+         compared["score_quartile_batched"] + recipe_rows["score_quartile_batched"]),
         ("gather_strips", "rssync_tpu/frontend/tracking.py:434", csrc + "gather_strips.cu",
-         tracker, k3_launches["gather_strips"], strip_rows[: len(k3_shapes)], strip_rows),
+         tracker, k3_launches["gather_strips"], strip_rows[: len(k3_shapes)],
+         strip_rows + recipe_rows["gather_strips"]),
         ("u8_to_bf16", "experiments/r4_u8pass.py:54", csrc + "convert_u8.cu", h + "r4_u8pass",
          probe_paths["e5"][0], e5_rows, e5_rows),
         ("u8_to_bf16", "experiments/r4_u8pass2.py:61", csrc + "convert_u8.cu",
@@ -1151,6 +1549,10 @@ def main() -> None:
             ms=heavy["ms"], plain_ms=heavy["plain_ms"], bound_ms=heavy["bound_ms"],
             bound_by=heavy["bound_by"], library_ms=heavy["library_ms"], shapes=rows,
         ))
+        if path in (engine, tracker):
+            # launches on the recipe path (phase 16 (a), counters zeroed
+            # just before run_recipe and read just after)
+            kernels[-1]["recipe_launches"] = recipe_launches[name]
     print(f"# total {time.perf_counter() - t_start:.2f} s ({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

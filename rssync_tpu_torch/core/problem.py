@@ -44,6 +44,10 @@ class SplineTable:
     coeffs: (16, n_knots) packed per ops/spline.py::pack_table — row
     4c + r is coefficient c (y, b, c, d) of quaternion row r (w,x,y,z).
     sample_rate: () f32 — knots per second.
+
+    A stack of V tables (one per window, or per gyro orientation) has
+    coeffs (V, 16, n_knots) and sample_rate (V,); `compute_problem`
+    then evaluates each window against its own table.
     """
 
     coeffs: torch.Tensor
@@ -130,6 +134,21 @@ def make_spline_table(quats: np.ndarray, sample_rate: float, *, device) -> Splin
     quats = np.asarray(quats, dtype=np.float64)
     packed = pack_table(fit_natural_cubic(quats.T))  # (16, n)
     return table_from_numpy(packed, np.float32(sample_rate), device=device)
+
+
+def make_spline_tables_batched(quats: np.ndarray, sample_rate: float, *,
+                               device) -> SplineTable:
+    """Fit V spline tables at once: quats (V, n, 4) on one uniform grid
+    -> a SplineTable with coeffs (V, 16, n) and sample_rate (V,), one
+    natural-cubic solve over the 4V rows (guess-orient fits its 48
+    orientation variants so)."""
+    quats = np.asarray(quats, np.float64)
+    V, n, R = quats.shape
+    coeffs = fit_natural_cubic(quats.transpose(0, 2, 1).reshape(V * R, n))  # (n, V*R, 4)
+    # pack per table: row c*R + r holds coefficient c of spline row r
+    packed = np.ascontiguousarray(
+        coeffs.reshape(n, V, R, 4).transpose(1, 3, 2, 0).reshape(V, 4 * R, n))
+    return table_from_numpy(packed, np.full((V,), sample_rate, np.float32), device=device)
 
 
 def build_track_window(
@@ -237,6 +256,18 @@ def dot_soa(a, b) -> torch.Tensor:
     return out
 
 
+def _gather_coeffs(table: SplineTable, idx: torch.Tensor) -> torch.Tensor:
+    """The packed coefficients at knots idx: (16, *idx.shape). A stack of
+    V tables is read at idx's axis -3 (the window axis before frames and
+    features), each window from its own table."""
+    c = table.coeffs
+    if c.dim() == 2:
+        return c[:, idx]
+    V, R, n = c.shape
+    offset = torch.arange(V, device=idx.device).view(V, 1, 1) * n
+    return c.permute(1, 0, 2).reshape(R, V * n)[:, idx + offset]
+
+
 def _spline_quats(table: SplineTable, i0, f0, shift):
     """Unit quaternion components (w, x, y, z) of the spline at
     i0 + f0 + shift; shift broadcasts against i0/f0."""
@@ -246,7 +277,7 @@ def _spline_quats(table: SplineTable, i0, f0, shift):
     xi = i0 + pf.to(torch.int32)
     h_in = p - pf
     idx = torch.clamp(xi, 0, n - 1).long()
-    q = horner_eval(table.coeffs[:, idx], xi, h_in, n)  # (4, ...)
+    q = horner_eval(_gather_coeffs(table, idx), xi, h_in, n)  # (4, ...)
     q = q * torch.rsqrt(torch.clamp(dot_soa(q, q), min=1e-30))
     return q.unbind(0)
 
@@ -256,7 +287,9 @@ def compute_problem(table: SplineTable, win: TrackWindow, gyro_delay) -> torch.T
 
     win fields carry leading batch axes Bw (or none); gyro_delay is a
     tensor that broadcasts against Bw (a scalar, (W,) per window, or
-    (K, 1) for K delays x W windows). Returns P (*batch, 3, F, N) with
+    (K, 1) / (K, W) for K delays x W windows). A stacked table (V
+    tables) pairs with the axis just before (F, N) of the broadcast
+    positions: the W windows, or V for one window. Returns P (*batch, 3, F, N) with
     column (f, i) = cross(ar, br), ar = conj(q(t_a_i + delay)) rotating
     ray_a_i and likewise br: the pure-translation epipolar rows with
     P^T M ~= 0 at the correct delay (ref: core_private.cpp:15-32).

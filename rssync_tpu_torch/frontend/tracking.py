@@ -25,12 +25,23 @@ u8 pixels are exact in both).
 
 Entry points take their device from the frames tensor. Frames are
 (T, H, W) uint8 or float32; points are (N, 2) xy pixels.
+
+Video decode (cv2 on the host, imported only where frames are decoded)
+feeds `track_frames`, the tracking stage of the recipe pipeline:
+`VideoSource` (raw-luma fast path), the decode-ahead `FrameFeed`
+thread, and the multiprocess decode pool (frontend/decode_pool.py),
+chosen per run by `_range_feeds`.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import threading
+import time
+from dataclasses import dataclass
 from functools import lru_cache
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -276,12 +287,15 @@ def pad_frames_host(frames: np.ndarray, levels: int | None = None,
 
 
 def stack_pad_host(grays: list, n_total: int, H: int, W: int,
-                   Hp: int, Wp: int) -> np.ndarray:
+                   Hp: int, Wp: int, out: np.ndarray | None = None) -> np.ndarray:
     """A (n_total, Hp, Wp) storage-padded u8 block from a list of (H, W)
     frames in one host copy, the last frame repeated to fill the tail;
-    equal to pad_frames_host(np.stack(grays + [last] * tail))."""
+    equal to pad_frames_host(np.stack(grays + [last] * tail)). `out`: a
+    (n_total, Hp, Wp) u8 buffer to fill (pinned memory for an
+    asynchronous upload), else a new one."""
     k = len(grays)
-    out = np.empty((n_total, Hp, Wp), np.uint8)
+    if out is None:
+        out = np.empty((n_total, Hp, Wp), np.uint8)
     for i, g in enumerate(grays):
         out[i, :H, :W] = g
         out[i, H:, :W] = g[-1:, :]
@@ -834,9 +848,8 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
                ranges=None, grid_step: int | None = None,
                block: int = TRACK_BLOCK) -> None:
     """Track the frame pairs of `ranges` and feed
-    `problem.set_track_result`: the tracking stage of
-    rssync_tpu/frontend/tracking.py::track_frames for frames already on
-    the device (its video decode is not ported).
+    `problem.set_track_result`: the tracking stage of `track_frames` for
+    frames already on the device, with no video decode.
 
     frames: (T, H, W) uint8 clip on the tracker's device; frame_ts: (T,)
     seconds; ranges: (begin, end) pair ranges, end exclusive (pair p
@@ -861,3 +874,370 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
             tracked = lk_track_video(stack, grid_step=step, logical_hw=(H, W))
             emit_track_block(problem, lens, pts, tracked[: e - s],
                              np.arange(s, e), frame_ts[s : e + 1], H)
+
+
+# ---------------------------------------------------------------------------
+# host video decode
+
+
+@dataclass
+class Frame:
+    index: int
+    timestamp: float  # seconds
+    gray: np.ndarray  # (H, W) uint8
+
+
+def _probe_raw_luma(cv2, path: str, height: int) -> bool:
+    """Check whether CONVERT_RGB=0 yields a usable luma plane for this
+    stream (yuv420p-family): the ffmpeg backend then skips the YUV->BGR
+    conversion and `read()` returns either the bare Y plane (H, W) or
+    the full I420 buffer (H*3/2, W)."""
+    cap = cv2.VideoCapture(path)
+    try:
+        if not cap.isOpened():
+            return False
+        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+        ok, img = cap.read()
+        return bool(
+            ok
+            and img is not None
+            and img.ndim == 2
+            and img.shape[0] in (height, height * 3 // 2)
+        )
+    finally:
+        cap.release()
+
+
+class VideoSource:
+    """cv2-backed host decoder (the reference's VideoCapture usage,
+    ref: core_testcode.cpp:99-122), with a raw-luma fast path: where
+    the reference decodes to BGR and converts to gray
+    (core_testcode.cpp:118-121), yuv420p streams here skip both
+    conversions and read the Y plane directly."""
+
+    #: forward gaps up to this many frames skip via grab() (decode
+    #: without convert/copy) instead of a container seek. A seek costs a
+    #: keyframe-to-position decode, which on sparse-keyframe streams
+    #: (cv2's own mp4v writer emits very few) re-decodes up to the whole
+    #: prefix per seek; grab() is a bounded decode per frame. 512 covers
+    #: window-scoped gaps (<= syncpoint_distance).
+    GRAB_FWD = 512
+
+    def __init__(self, path: str, raw_luma: bool = True):
+        import cv2
+
+        try:  # silence ffmpeg's per-frame yuv420p->8UC1 notice
+            cv2.utils.logging.setLogLevel(cv2.utils.logging.LOG_LEVEL_ERROR)
+        except AttributeError:
+            pass
+        self._cv2 = cv2
+        self.path = path
+        probe = cv2.VideoCapture(path)
+        if not probe.isOpened():
+            raise RuntimeError("video open failed")
+        self.fps = probe.get(cv2.CAP_PROP_FPS)
+        self.width = int(probe.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(probe.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        probe.release()
+        self._raw = raw_luma and _probe_raw_luma(cv2, path, self.height)
+        self.cap = cv2.VideoCapture(path)
+        if not self.cap.isOpened():
+            raise RuntimeError("video open failed")
+        if self._raw:
+            self.cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+        self._pos = 0  # next frame read() returns
+
+    def close(self) -> None:
+        self.cap.release()
+
+    def _gray(self, img) -> np.ndarray:
+        if self._raw:
+            if img.shape[0] == self.height:
+                return img.copy()
+            return img[: self.height].copy()
+        return self._cv2.cvtColor(img, self._cv2.COLOR_BGR2GRAY)
+
+    def seek(self, frame: int) -> None:
+        """Position so the next read() returns `frame`. No-op when
+        already there; short forward gaps grab() through (see
+        GRAB_FWD); otherwise a real container seek."""
+        if frame == self._pos:
+            return
+        if self._pos < frame <= self._pos + self.GRAB_FWD:
+            for _ in range(frame - self._pos):
+                if not self.cap.grab():
+                    raise RuntimeError("grab failed during forward skip")
+            self._pos = frame
+            return
+        self.cap.set(self._cv2.CAP_PROP_POS_FRAMES, frame)
+        if self.cap.get(self._cv2.CAP_PROP_POS_FRAMES) != frame:
+            raise RuntimeError("Seek failed")
+        self._pos = frame
+
+    def frames(self, start: int, stop: int) -> Iterator[Frame]:
+        self.seek(start)
+        for idx in range(start, stop):
+            ok, img = self.cap.read()
+            if not ok:
+                raise RuntimeError("frame read failed")
+            self._pos = idx + 1
+            ts = self.cap.get(self._cv2.CAP_PROP_POS_MSEC) / 1000.0
+            yield Frame(index=idx, timestamp=ts, gray=self._gray(img))
+
+
+class FrameFeed:
+    """Decode-ahead frame feed: one reader thread decodes chunks of
+    [start, stop) in order into a bounded buffer, so host decode
+    overlaps device tracking instead of serializing with it (the
+    reference decodes inline in its tracking loop,
+    ref: core_testcode.cpp:99-122). At most AHEAD chunks are buffered
+    beyond the consumer.
+
+    rssync_tpu's FrameFeed (tracking.py:1493) with its defaults,
+    n_workers=1 and ahead=16: its thread workers beyond one interleave
+    chunk seeks, which re-decode from a keyframe per chunk on
+    sparse-keyframe streams, and parallel decode is the DecodePool's
+    job (decode_pool.py), so the port keeps the single reader only."""
+
+    CHUNK = 32
+    AHEAD = 16
+
+    def __init__(self, path: str, start: int, stop: int):
+        self._src = VideoSource(path)
+        self.fps = self._src.fps
+        self.width = self._src.width
+        self.height = self._src.height
+        bounds = list(range(start, stop, self.CHUNK)) + [stop]
+        self._chunks = list(zip(bounds[:-1], bounds[1:]))
+        self._results: dict[int, object] = {}
+        self._next_emit = 0
+        self._cv = threading.Condition(threading.Lock())
+        self._stopped = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        ci = 0
+        try:
+            for ci, (c0, c1) in enumerate(self._chunks):
+                with self._cv:
+                    while ci >= self._next_emit + self.AHEAD and not self._stopped:
+                        self._cv.wait(timeout=1.0)
+                    if self._stopped:
+                        return
+                frames = list(self._src.frames(c0, c1))
+                with self._cv:
+                    self._results[ci] = frames
+                    self._cv.notify_all()
+        except Exception as e:  # surfaced in the consumer
+            with self._cv:
+                self._results[ci] = e
+                self._cv.notify_all()
+
+    def close(self) -> None:
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+
+    def __iter__(self) -> Iterator[Frame]:
+        try:
+            for ci in range(len(self._chunks)):
+                with self._cv:
+                    while ci not in self._results:
+                        self._cv.wait(timeout=1.0)
+                        if self._stopped and ci not in self._results:
+                            return
+                    item = self._results.pop(ci)
+                    self._next_emit = ci + 1
+                    self._cv.notify_all()
+                if isinstance(item, Exception):
+                    raise item
+                yield from item
+        finally:
+            self.close()
+
+
+def _range_feeds(video_path: str,
+                 ranges: Sequence[tuple[int, int]]) -> Iterator[Iterator[Frame]]:
+    """One frame iterator per PAIR range (decoding [pb, pe+1) each).
+
+    Picks the decode backend by available parallelism: with >1 CPU a
+    multiprocess DecodePool shards chunks across decoder processes; on a
+    single core the decode-ahead FrameFeed thread (no spawn cost, still
+    overlaps device tracking). Both yield bit-identical frames."""
+    from rssync_tpu_torch.frontend.decode_pool import (
+        PROBE_MIN_FRAMES,
+        DecodePool,
+        available_workers,
+        probe_workers,
+    )
+
+    n = available_workers()
+    if n <= 1 or len(ranges) == 0:
+        for pb, pe in ranges:
+            yield iter(FrameFeed(video_path, pb, pe + 1))
+        return
+    probe = VideoSource(video_path)
+    raw, h, w = probe._raw, probe.height, probe.width
+    probe.close()
+    # replace the min(4, cores) guess with a measured-throughput choice
+    # when enough frames are at stake to amortize the probe
+    total = sum(pe + 1 - pb for pb, pe in ranges)
+    if total >= PROBE_MIN_FRAMES:
+        n = probe_workers(video_path, h, w, raw, total, start=ranges[0][0])
+        if n <= 1:  # measured: parallel decode loses on this host
+            for pb, pe in ranges:
+                yield iter(FrameFeed(video_path, pb, pe + 1))
+            return
+    pool = DecodePool(video_path, [(pb, pe + 1) for pb, pe in ranges], h, w, raw, n)
+    try:
+        for i in range(len(ranges)):
+            yield (Frame(index=idx, timestamp=ts, gray=g) for idx, ts, g in pool.span_frames(i))
+    finally:
+        pool.close()
+
+
+# ---------------------------------------------------------------------------
+# the tracking stage of the recipe pipeline
+
+
+#: pair ranges closer than this many frames merge into one decode run
+#: (re-seeking costs a keyframe-to-position decode of up to a GOP)
+RANGE_MERGE_GAP = 16
+
+
+def _merge_pair_ranges(ranges, frame_begin: int, frame_end: int) -> list[tuple[int, int]]:
+    """Clip (begin, end)-exclusive PAIR ranges to [frame_begin,
+    frame_end), sort, and merge overlapping/near-adjacent ones."""
+    clipped = sorted((max(frame_begin, int(b)), min(frame_end, int(e))) for b, e in ranges)
+    out: list[list[int]] = []
+    for b, e in clipped:
+        if e <= b:
+            continue
+        if out and b <= out[-1][1] + RANGE_MERGE_GAP:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([b, e])
+    return [(b, e) for b, e in out]
+
+
+#: blocks the lk path keeps in flight (decoded, uploaded, tracking)
+#: before it drains the oldest
+TRACK_DEPTH = 3
+
+
+def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int,
+                 frame_end: int, grid_step: int | None = None, method: str = "lk",
+                 progress: bool = False, block: int = TRACK_BLOCK, ranges=None,
+                 device="cuda") -> None:
+    """Track every consecutive frame pair in [frame_begin, frame_end)
+    and feed `problem.set_track_result` (ref: core_testcode.cpp:97-162).
+
+    method: "lk" (the tracker on `device`: frames decode on the host in
+    blocks of `block` pairs, are storage-padded there by
+    `stack_pad_host`, a short tail block filled by repeating its last
+    frame, uploaded as u8 from pinned memory, tracked by
+    `lk_track_video` and emitted by `emit_track_block`, with up to
+    TRACK_DEPTH blocks in flight, so the tracks equal `track_clip`'s on
+    the same frames bit for bit) or "dis" (host cv2 DIS dense flow
+    sampled at the grid, the reference's tracker, for cross-validation;
+    rays are lifted on `device`).
+
+    ranges: optional (begin, end)-exclusive PAIR ranges restricting
+    tracking to the pairs the engine will read; the pipeline passes the
+    union of its syncpoint windows, so host decode skips inter-window
+    frames. The reference decodes its whole frame_range inline
+    (core_testcode.cpp:99-122) but equally never reads inter-window
+    pairs, so recipe outputs are identical. None = every pair.
+
+    rssync_tpu's XLA compile warm-up (the tracker-warm thread, its
+    gate, and the staging of uploaded blocks while the tracker compiles,
+    RSSYNC_TRACK_MAX_STAGED) is not ported: nothing here compiles at
+    first call. RSSYNC_TRACK_TIMING=1 prints each block's decode wait,
+    host pad, upload and tracking + emission times.
+    """
+    dev = torch.device(device)
+    if ranges is None:
+        ranges = [(frame_begin, frame_end)]
+    ranges = _merge_pair_ranges(ranges, frame_begin, frame_end)
+    probe = VideoSource(video_path)
+    width, height = probe.width, probe.height
+    probe.close()
+    pts = grid_points(width, height, grid_step)
+
+    if method == "dis":
+        import cv2
+
+        dis = cv2.DISOpticalFlow.create()
+        src = VideoSource(video_path)
+        pts_t = torch.as_tensor(pts, dtype=_F32, device=dev)
+        ij = pts.astype(int)
+        for pb, pe in ranges:
+            it = src.frames(pb, pe + 1)
+            cur = next(it)
+            for nxt in it:
+                if progress:
+                    print(f"processing frame {cur.index}", flush=True)
+                flow = dis.calc(cur.gray, nxt.gray, None)
+                tracked = pts + flow[ij[:, 1], ij[:, 0]]
+                emit_track_result(problem, lens, pts, pts_t, height, cur.index, tracked,
+                                  cur.timestamp, nxt.timestamp)
+                cur = nxt
+        src.close()
+        return
+    if method != "lk":
+        raise ValueError(f"unknown tracking method {method!r}")
+
+    step = grid_step or auto_grid_step(width)
+    fine0 = _level_plan(auto_levels(height, width), LK_ITERS, LK_RADIUS)[2]
+    Hp, Wp = _stored_dims(height, width, "fine" if fine0 else "lane")
+    timing = os.environ.get("RSSYNC_TRACK_TIMING", "") not in ("", "0")
+    # one host buffer per block in flight: a block's buffer is reused
+    # only after that block was drained, so its upload has finished
+    pinned = dev.type == "cuda"
+    bufs = [torch.empty((block + 1, Hp, Wp), dtype=torch.uint8, pin_memory=pinned).numpy()
+            for _ in range(TRACK_DEPTH)]
+    pending: list[tuple[list[Frame], torch.Tensor]] = []
+    n_blocks = 0
+
+    def drain(p):
+        p_frames, tracked = p
+        emit_track_block(problem, lens, pts, tracked[: len(p_frames) - 1],
+                         [f.index for f in p_frames[:-1]],
+                         [f.timestamp for f in p_frames], height)
+
+    for (pb, pe), it in zip(ranges, _range_feeds(video_path, ranges)):
+        carry: Frame | None = None
+        done = False
+        while not done:
+            t0 = time.perf_counter()
+            frames = [carry] if carry is not None else []
+            while len(frames) < block + 1:
+                try:
+                    frames.append(next(it))
+                except StopIteration:
+                    done = True
+                    break
+            if len(frames) < 2:
+                break
+            if progress:
+                print(f"processing frames {frames[0].index}..{frames[-1].index - 1}",
+                      flush=True)
+            t1 = time.perf_counter()
+            stack_np = stack_pad_host([f.gray for f in frames], block + 1, height, width,
+                                      Hp, Wp, out=bufs[n_blocks % TRACK_DEPTH])
+            t2 = time.perf_counter()
+            stack = torch.from_numpy(stack_np).to(dev, non_blocking=True)
+            t3 = time.perf_counter()
+            pending.append((frames, lk_track_video(stack, grid_step=step,
+                                                   logical_hw=(height, width))))
+            n_blocks += 1
+            if len(pending) >= TRACK_DEPTH:
+                drain(pending.pop(0))
+            if timing:
+                print(f"# block {frames[0].index}: decode {t1 - t0:.4f} s, stack "
+                      f"{t2 - t1:.4f} s, upload {t3 - t2:.4f} s, track + emit "
+                      f"{time.perf_counter() - t3:.4f} s", flush=True)
+            carry = frames[-1]
+    for p in pending:
+        drain(p)

@@ -50,39 +50,45 @@ def stack_windows(windows: Sequence[TrackWindow]) -> TrackWindow:
 
 
 @torch.no_grad()
-def batched_presync(
+def presync_costs(
     table: SplineTable, wins: TrackWindow, delays: torch.Tensor,
-    generator: torch.Generator,
+    generator: torch.Generator, centers: torch.Tensor | None = None, pairs=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """All windows x all delay-grid points.
+    """PreSync costs of every window at every grid entry.
 
-    wins: stacked TrackWindow with leading W axis. delays: (D,).
-    Returns (best_cost (W,), best_delay (W,)).
-
-    The grid runs in equal chunks sized to device memory; it is padded
-    with inf to a whole number of chunks. Non-finite grid entries are
-    evaluated at the grid centre (finite, so no inf reaches the floor
-    and int32 casts) and score inf. RANSAC pairs for the whole grid are
-    drawn up front, so the chunk size never changes them.
+    wins: stacked TrackWindow with leading W axis; table: one spline
+    table, or one per window stacked on a leading W axis
+    (parallel/multi.py::stack_tables). delays: a shared (D,) grid, or a
+    per-window (W, D) grid padded with inf. centers: (W,) where
+    non-finite grid entries are evaluated (finite, so no inf reaches
+    the floor and int32 casts; they score inf); by default each
+    window's finite-grid midpoint. pairs: RANSAC index pairs (r0, r1),
+    each (D, W, F, PRESYNC_RANSAC_ITERS), drawn from `generator` for
+    the whole grid up front when not given, so the chunk size never
+    changes them. Returns (costs (Dp, W), grid (W, Dp)): the grid padded
+    with inf to a whole number of chunks sized to device memory.
     """
     W, F = wins.counts.shape
     N = wins.num_features
-    D = delays.shape[0]
-    center = 0.5 * (torch.min(delays) + torch.max(delays))
-    K = delay_chunk(delays.device, D, W * F * N)
+    grid = delays if delays.dim() == 2 else delays[None].expand(W, -1)
+    D = grid.shape[1]
+    if centers is None:
+        finite = torch.isfinite(grid)
+        lo = torch.where(finite, grid, math.inf).min(dim=1).values
+        hi = torch.where(finite, grid, -math.inf).max(dim=1).values
+        centers = 0.5 * (lo + hi)
+    K = delay_chunk(grid.device, D, W * F * N)
     pad = (-D) % K
-    delays_p = F_.pad(delays, (0, pad), value=math.inf)
-    r0, r1 = sample_pairs(
-        generator, PRESYNC_RANSAC_ITERS, wins.counts.expand(D, W, F)
-    )  # (D, W, F, I)
-    r0 = F_.pad(r0, (0, 0, 0, 0, 0, 0, 0, pad))
-    r1 = F_.pad(r1, (0, 0, 0, 0, 0, 0, 0, pad))
+    grid_p = F_.pad(grid, (0, pad), value=math.inf)  # (W, Dp)
+    if pairs is None:
+        pairs = sample_pairs(generator, PRESYNC_RANSAC_ITERS, wins.counts.expand(D, W, F))
+    r0, r1 = (F_.pad(r, (0, 0, 0, 0, 0, 0, 0, pad)) for r in pairs)  # (Dp, W, F, I)
     counts = wins.counts.expand(K, W, F).reshape(K * W, F)
     costs = []
     for s in range(0, D + pad, K):
-        ds = delays_p[s:s + K]
-        ds = torch.where(torch.isfinite(ds), ds, center)
-        P = compute_problem(table, wins, ds[:, None])  # (K, W, 3, F, N)
+        ds = grid_p[:, s:s + K].T  # (K, W)
+        ds = torch.where(torch.isfinite(ds), ds, centers)
+        P = compute_problem(table, wins, ds)  # (K, W, 3, F, N)
         Pb = P.reshape(K * W, 3, F, N)
         M = guess_motion_window_batched(
             Pb, counts, generator, PRESYNC_RANSAC_ITERS,
@@ -90,9 +96,19 @@ def batched_presync(
         )  # (K * W, F, 3)
         costs.append(cost_with_motion(P, M.reshape(K, W, F, 3), wins.frame_mask))
     costs = torch.cat(costs)  # (Dp, W)
-    costs = torch.where(torch.isfinite(delays_p)[:, None], costs, math.inf)
+    return torch.where(torch.isfinite(grid_p.T), costs, math.inf), grid_p
+
+
+def batched_presync(
+    table: SplineTable, wins: TrackWindow, delays: torch.Tensor,
+    generator: torch.Generator, centers: torch.Tensor | None = None, pairs=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """All windows x all delay-grid points (`presync_costs`); returns
+    (best_cost (W,), best_delay (W,))."""
+    costs, grid_p = presync_costs(table, wins, delays, generator, centers, pairs)
     i = torch.argmin(costs, dim=0)  # (W,)
-    return costs.gather(0, i[None])[0], delays_p[i]
+    best = grid_p.gather(1, i[:, None])[:, 0]
+    return costs.gather(0, i[None])[0], best
 
 
 def batched_sync(

@@ -1,11 +1,12 @@
 """Synthetic rolling-shutter video + gyro log with a known delay,
 rendered on the device.
 
-Port of rssync_tpu/testing/synthvideo.py without its files: the frames
-come back as a (T, H, W) uint8 tensor and the gyro log as arrays, in
-place of an MP4, a .gcsv and a lens file (`write_gcsv` writes the log in
-that .gcsv's layout). For one seed the trajectory, texture, lens and gyro
-rates are those of rssync_tpu's `make_clip`.
+Port of rssync_tpu/testing/synthvideo.py: the frames come back as a
+(T, H, W) uint8 tensor and the gyro log as arrays; `write_clip_files`
+writes the MP4 (cv2's mp4v writer), the .gcsv and the lens file in the
+layout rssync_tpu's `make_clip` writes them, for the recipe pipeline.
+For one seed the trajectory, texture, lens and gyro rates are those of
+rssync_tpu's `make_clip`.
 
 Scene: a camera with Kannala-Brandt fisheye optics rotates along a
 smooth Euler-angle sinusoid while observing a procedural 3-D texture
@@ -31,6 +32,14 @@ from scipy.spatial.transform import Rotation
 from rssync_tpu_torch.ops import lens as lens_ops
 
 _F32 = torch.float32
+
+
+@dataclass
+class ClipFiles:
+    video_path: str
+    gyro_path: str
+    lens_path: str
+    lens_name: str
 
 
 @dataclass
@@ -193,3 +202,34 @@ def write_gcsv(path: str, gyro_ts: np.ndarray, gyro_rates: np.ndarray) -> None:
         f.write("tscale,0.001\ngscale,1.0\nascale,1.0\nt,gx,gy,gz\n")
         for t, (gx, gy, gz) in zip(gyro_ts, gyro_rates):
             f.write(f"{t * 1000:.6f},{gx:.9f},{gy:.9f},{gz:.9f}\n")
+
+
+def write_clip_files(clip: SyntheticClip, out_dir: str, block: int = 32) -> ClipFiles:
+    """Write `clip` as rssync_tpu's make_clip writes its files
+    (rssync_tpu/testing/synthvideo.py:153-210): clip.mp4 (gray frames
+    through cv2's mp4v writer at clip.fps; copied from the render device
+    `block` frames at a time), clip.gcsv (`write_gcsv`) and lens.txt, one
+    `synth_cam` lens-profile row."""
+    import os
+
+    import cv2
+
+    os.makedirs(out_dir, exist_ok=True)
+    video_path = os.path.join(out_dir, "clip.mp4")
+    writer = cv2.VideoWriter(video_path, cv2.VideoWriter_fourcc(*"mp4v"), clip.fps,
+                             (clip.width, clip.height), False)
+    if not writer.isOpened():
+        raise RuntimeError("cv2.VideoWriter failed to open")
+    for s in range(0, clip.n_frames, block):
+        for img in clip.frames[s : s + block].cpu().numpy():
+            writer.write(img)
+    writer.release()
+    gyro_path = os.path.join(out_dir, "clip.gcsv")
+    write_gcsv(gyro_path, clip.gyro_ts, clip.gyro_rates)
+    lens, name = clip.lens, "synth_cam"
+    lens_path = os.path.join(out_dir, "lens.txt")
+    with open(lens_path, "w") as f:
+        f.write(f"{name} {lens.ro} {lens.fx} {lens.fy} {lens.cx} {lens.cy} "
+                f"{lens.k1} {lens.k2} {lens.k3} {lens.k4}\n")
+    return ClipFiles(video_path=video_path, gyro_path=gyro_path, lens_path=lens_path,
+                     lens_name=name)

@@ -59,14 +59,13 @@ def save_tracks(problem, path: str) -> None:
 def load_tracks(problem, path: str) -> int:
     """Feed cached frame data into a SyncProblem via set_track_result.
     Returns the number of frames restored."""
-    z = np.load(path)
-    frames = z["frames"]
-    offs = np.concatenate([[0], np.cumsum(z["counts"])])
+    with np.load(path) as z:  # each z[name] read decompresses the array: read each once
+        frames, counts = z["frames"], z["counts"]
+        ts_a, ts_b, rays_a, rays_b = z["ts_a"], z["ts_b"], z["rays_a"], z["rays_b"]
+    offs = np.concatenate([[0], np.cumsum(counts)])
     for i, f in enumerate(frames):
         s, e = offs[i], offs[i + 1]
-        problem.set_track_result(
-            int(f), z["ts_a"][s:e], z["ts_b"][s:e], z["rays_a"][s:e], z["rays_b"][s:e],
-        )
+        problem.set_track_result(int(f), ts_a[s:e], ts_b[s:e], rays_a[s:e], rays_b[s:e])
     return len(frames)
 
 

@@ -231,9 +231,10 @@ def test_profile_busy_time_is_a_union():
 
 
 def test_port_imports_neither_jax_nor_rssync_tpu(tmp_path):
-    """Every port module, one engine call, a file intake through
-    fill_gyro and one L-BFGS Sync window leave JAX and the JAX package
-    out of the interpreter."""
+    """Every port module (the CLI and the decoder pool among them), one
+    engine call, a file intake through fill_gyro and one L-BFGS Sync
+    window leave JAX and the JAX package out of the interpreter, and
+    import with cv2 unimportable."""
     gcsv = tmp_path / "log.gcsv"
     gcsv.write_text("GYROFLOW IMU LOG\ntscale,0.001\ngscale,0.001\nt,gx,gy,gz\n" + "".join(
         f"{i * 5},{300 * np.sin(i / 40):.0f},{200 * np.cos(i / 30):.0f},{100 * np.sin(i / 20):.0f}\n"
@@ -245,7 +246,11 @@ def test_port_imports_neither_jax_nor_rssync_tpu(tmp_path):
     )
     code = "\n".join([
         "import importlib, sys",
+        "sys.modules['cv2'] = None  # import cv2 raises ImportError",
         f"for m in {mods!r}: importlib.import_module(m)",
+        "for m in ('rssync_tpu_torch.pipeline.__main__', 'rssync_tpu_torch.frontend.decode_pool',",
+        "          'rssync_tpu_torch.parallel.multi', 'rssync_tpu_torch.pipeline.guess_orient'):",
+        "    assert m in sys.modules, m",
         "from rssync_tpu_torch.testing.engine_problem import make_engine_problem",
         "from rssync_tpu_torch import create_sync_problem",
         "prob = make_engine_problem(duration=1.0, fps=30.0, n_features=12,",
