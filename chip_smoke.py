@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port once on an NVIDIA card: the sync engine,
 the LK tracker, rendered frames -> tracks -> sync end to end, telemetry
-files -> sync, the reference engine's golden data, and the recipe
-pipeline (video file -> CSV, its CLI) at full width.
+files -> sync, the reference engine's golden data, the recipe pipeline
+(video file -> CSV, its CLI) at full width, the long-term drift run, the
+window mesh and the hybrid tracker.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -131,13 +132,38 @@ Phases (any failure exits non-zero and prints no result line):
 18. K1/K2/K3 against their plain versions, bit-equal, at every shape a
     run of phases 16-17 launched them at that phases 3, 10 and 14 did
     not already compare (the counters' launch shapes are read after each
-    run of those phases).
+    run of those phases);
+19. tests/test_longterm.py's drifting-delay scenario at full size (a
+    400 s log at 30 fps drifting 1e-4 s/s, 40 features, 20 windows of 30
+    frames, PreSync +-60 ms around 21 ms in 2 ms steps, 4 Sync passes at
+    radius 60 ms): max error <= 0.5 ms, mean < 0.2 ms, sync_rmse <
+    0.2 ms, spread > 2 ms, fitted slope within 10 % of the drift; then
+    guess_motion and guess_motion_from_pairs once on the same pairs
+    (K1 at one row, twice): equal, unit;
+20. the window mesh at the engine operating point (phase 2's problem,
+    PreSync over +-200 ms in 2 ms steps and 4 Sync passes): unsharded,
+    batched_sync_pipeline, parallel/mesh.py over make_mesh() (every
+    card) and over 5 shards on cuda:0: PreSync best delays within one
+    grid step and costs within rtol 1e-4 of the unsharded run, Sync
+    delays within 0.01 ms, every delay within 0.5 ms of the truth (the
+    wall time of each run and whether each is bit-equal printed); then
+    phase 17's two clips as one stacked fleet (sync_clips' PreSync and 4
+    Sync passes) sharded 4 ways, and 3 ways padded with pad_to_multiple:
+    within 0.01 ms of the unsharded fleet and 0.5 ms of each truth;
+21. phase 6's 241 frames through lk_track_video_chunked with
+    hybrid=False and hybrid=True: tracks within 2e-3 px (bit-identity
+    printed), ms per pair of each, K3 launched over the whole clip with
+    frame indices; the hoisted pyramid levels and level-0 templates
+    against the first block's (printed);
+22. K1/K2/K3 against their plain versions, bit-equal, at every shape
+    phases 19-21 launched them at that no earlier phase compared.
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
 shape its main path launched it at, and `shapes` holds the measurements
 at every shape (a row from phase 18 names the runs that launched its
-shape under `path`). `path` names the path that launched it; the
+shape under `path`; phase 22's name phases 19-21). `path` names the
+path that launched it; the
 kernels of the engine and tracker paths also carry `recipe_launches`,
 their launches in phase 16 (a). The last line is
 {"ok": true, "device": {...}}.
@@ -202,6 +228,15 @@ SCORE_OPS = {
 TRACK_HW = (2028, 2704)
 GRID_STEP = 200
 CHUNK = 16
+#: phase 21: phase 6's 241 frames through the hybrid chunk structure
+HYBRID_FRAMES = 15 * CHUNK + 1
+#: phase 19: tests/test_longterm.py's 400 s log drifting 1e-4 s/s
+LONGTERM = dict(seed=4, duration=400.0, fps=30.0, n_features=40, sync_window=30,
+                syncpoint_distance=600, true_delay=0.021, delay_drift=1e-4)
+#: phase 20: sharded vs unsharded Sync delays on the card (ms); the split
+#: may reorder a float32 reduction, and 0.01 ms is a tenth of the
+#: card-vs-CPU limit
+MESH_AGREE_MS = 0.01
 
 
 def fail(msg: str) -> None:
@@ -254,8 +289,9 @@ def score_inputs(np, torch, seed, B, F, N, I, dev):
     rng = np.random.default_rng(seed)
     P = rng.standard_normal(size=(B, 3, F, N), dtype=np.float32)
     counts = rng.integers(N // 2, N + 1, size=(B, F)).astype(np.int32)
-    counts[:, 0] = 0
-    counts[:, 1] = 1
+    if F > 2:  # one row at F = 1 (the single-frame guessers) keeps its count
+        counts[:, 0] = 0
+        counts[:, 1] = 1
     P *= (np.arange(N) < counts[..., None])[:, None]
     n2 = np.sum(P * P, axis=1, keepdims=True)
     P *= np.where(n2 < 1e-24, 1.0, 1.0 / np.sqrt(np.maximum(n2, 1e-30))).astype(np.float32)
@@ -813,12 +849,13 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
 
 
 def guess_multi_phase(np, torch, card, clip, recipe, cache, S, ST, RC, GO, make_clip,
-                      write_clip_files, tmp, seen) -> None:
+                      write_clip_files, tmp, seen) -> list:
     """Phase 17: guess-orient on phase 16's recipe over frames (0, 60),
     then run_multi_recipes on phase 16's recipe (its tracks from the
     phase's track cache) and a second rendered clip with other
     settings, the counters zeroed just before each and read just after;
-    the shapes each launched K1/K2/K3 at go into `seen`."""
+    the shapes each launched K1/K2/K3 at go into `seen`. Returns the
+    fleet's (recipe, clip) pairs."""
     S.reset_launch_counters()
     ST.reset_launch_counters()
     t1 = time.perf_counter()
@@ -875,6 +912,291 @@ def guess_multi_phase(np, torch, card, clip, recipe, cache, S, ST, RC, GO, make_
               f"multi-clip offset error {e.max():.4f} ms")
     check(launches["score_quartile_batched"] > 0, "run_multi_recipes: K2 was not launched")
     check(launches["gather_strips"] > 0, "run_multi_recipes: K3 (clip 2's tracks) was not launched")
+    return [(recipe1, clip), (recipe2, clip2)]
+
+
+def compare_new_shapes(np, torch, S, ST, dev, seen, covered, seed0, label) -> dict:
+    """K1/K2/K3 against their plain versions at every launch shape in
+    `seen` that `covered` lacks (then added to it); each row's `path`
+    names the runs that launched its shape. Returns {kernel: rows}."""
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    rows = {name: [] for name in covered}
+    for name in covered:
+        new = sorted(sh for sh in seen.get(name, {}) if sh not in covered[name])
+        print(f"# {name}: {len(seen.get(name, {}))} launch shapes in {label}, "
+              f"{len(new)} not compared before: {new}", flush=True)
+        for i, sh in enumerate(new):
+            if name == "gather_strips":  # frame indices matter where T != B
+                row = compare_strips(np, torch, ST, sh, dev, seed0 + i, sh[0] != sh[3], flush)
+            else:
+                row = compare_score(np, torch, S, name, sh, dev, seed0 + i, flush)
+            row["path"] = sorted(set(seen[name][sh]))
+            rows[name].append(row)
+        covered[name] |= set(new)
+    del flush
+    return rows
+
+
+def longterm_phase(np, torch, dev, card, S, R, B, make_engine_problem, compute_problem,
+                   sync_rmse, seen) -> None:
+    """Phase 19: tests/test_longterm.py's 400 s drifting-delay log on the
+    card (PreSync +-60 ms around 21 ms in 2 ms steps, 4 Sync passes at
+    radius 60 ms around each window's PreSync best), then the
+    single-frame guessers once (K1 at one row); counters zeroed just
+    before each and read just after."""
+    prob = make_engine_problem(**LONGTERM)
+    wins = B.stack_windows(prob.windows(dev))
+    table = prob.table(dev)
+    W = len(prob.syncpoints)
+    grid = torch.tensor(np.arange(-0.06, 0.06, 0.002) + LONGTERM["true_delay"],
+                        dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    S.reset_launch_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, best = B.batched_presync(table, wins, grid, gen)
+    cur = best
+    for _ in range(4):
+        cur = B.batched_sync(table, wins, cur, best, 0.06, gen).delay
+    got = cur.double().cpu().numpy()
+    t_run = time.perf_counter() - t1
+    launches = dict(S.LAUNCHES)
+    collect_shapes(seen, "19 long-term drift", S)
+    t_centers = (np.asarray(prob.syncpoints) + prob.sync_window / 2) / prob.fps
+    truth = prob.delay_at(t_centers)
+    err_ms = np.abs(got - truth) * 1e3
+    q = sync_rmse(np.asarray(prob.syncpoints, np.float64), got * 1e3)
+    spread = float(np.std(got * 1e3))
+    slope = float(np.polyfit(t_centers, got, 1)[0])
+    drift = LONGTERM["delay_drift"]
+    print(f"# long-term drift (400 s log, {W} windows, timestamps to "
+          f"{float(t_centers[-1]):.1f} s): PreSync + 4 Sync {t_run:.2f} s, launches {launches}; "
+          f"error max {err_ms.max():.4f} ms mean {err_ms.mean():.4f} ms, sync_rmse "
+          f"{q.rmse:.4f} ms, spread {spread:.3f} ms, slope {slope:.4e} s/s (drift {drift:g}) "
+          f"({card})", flush=True)
+    check(bool(np.isfinite(got).all()) and len(got) == W >= 15, "long-term: bad delays")
+    check(err_ms.max() <= OFFSET_TOL_MS, f"long-term: max error {err_ms.max():.4f} ms")
+    check(err_ms.mean() < 0.2, f"long-term: mean error {err_ms.mean():.4f} ms")
+    check(q.rmse < 0.2, f"long-term: sync_rmse {q.rmse:.4f} ms")
+    check(spread > 2.0, f"long-term: spread {spread:.3f} ms, the drift is missing")
+    check(abs(slope - drift) < 0.1 * drift, f"long-term: slope {slope:.4e} s/s")
+    check(launches["score_quartile_batched"] > 0, "long-term: K2 was not launched")
+
+    # the single-frame guessers: frame 0 of window 0 at its PreSync best
+    P = compute_problem(table, wins.map(lambda x: x[0]), best[0])[:, 0]  # (3, N)
+    count = int(wins.counts[0, 0])
+    S.reset_launch_counters()
+    r0, r1 = R.sample_pairs(torch.Generator(device=dev).manual_seed(1), 200,
+                            torch.tensor(count, device=dev))
+    m_pairs = R.guess_motion_from_pairs(P, count, r0, r1)
+    m_full = R.guess_motion(P, count, torch.Generator(device=dev).manual_seed(1), 200)
+    k1 = S.LAUNCHES["score_quartile"]
+    collect_shapes(seen, "19 guess_motion", S)
+    m_cpu = R.guess_motion_from_pairs(P.cpu(), count, r0.cpu(), r1.cpu())
+    cpu_diff = float((m_pairs.cpu() - m_cpu).abs().max())
+    print(f"# guess_motion / guess_motion_from_pairs (N={P.shape[1]}, {count} valid, 200 "
+          f"hypotheses): K1 launches {k1}, equal {bool(torch.equal(m_pairs, m_full))}, "
+          f"|M| {float(torch.linalg.vector_norm(m_pairs)):.7f}, card vs CPU on the same "
+          f"pairs {cpu_diff:.3e}", flush=True)
+    check(k1 == 2, f"the single-frame guessers launched K1 {k1} times, not 2")
+    check(torch.equal(m_pairs, m_full), "guess_motion differs from guess_motion_from_pairs")
+    check(abs(float(torch.linalg.vector_norm(m_pairs)) - 1.0) < 1e-5, "guess_motion: not unit")
+
+
+def mesh_phase(np, torch, dev, card, S, B, M, MU, create_sync_problem, prob,
+               syncpoint_windows, presync_grid, fleet, radius_s, step_s, seen) -> None:
+    """Phase 20: the engine operating point through the window mesh:
+    make_mesh() (every card) and 5 shards on cuda:0, beside the unsharded
+    run and batched_sync_pipeline; then phase 17's two-clip fleet
+    stacked and sharded 4 ways, and 3 ways padded with pad_to_multiple.
+    Counters zeroed just before each run and read just after."""
+    sp = create_sync_problem(seed=0)
+    prob.feed(sp)
+    ow, cw = syncpoint_windows(sp, prob.syncpoints, prob.sync_window)
+    table = sp.spline_table
+    W = ow.counts.shape[0]
+    grid = torch.tensor(presync_grid(0.0, radius_s, step_s), dtype=torch.float32, device=dev)
+    centers = torch.zeros(W, device=dev)
+
+    def unsharded(gen):
+        cost, best = B.batched_presync(table, ow, grid, gen)
+        cur = best
+        for _ in range(4):
+            cur = B.batched_sync(table, cw, cur, centers, radius_s, gen).delay
+        return cost, best, cur
+
+    def pipeline(gen):
+        best, res = B.batched_sync_pipeline(table, ow, cw, grid, 0.0, radius_s, gen)
+        return None, best, res[-1].delay
+
+    def sharded(mesh):
+        def run(gen):
+            cost, best = M.sharded_presync(table, ow, grid, gen, mesh)
+            cur = best
+            for _ in range(4):
+                cur = M.sharded_sync(table, cw, cur, centers, radius_s, gen, mesh).delay
+            return cost, best, cur
+        return run
+
+    mesh1 = M.make_mesh()
+    runs = [("unsharded", unsharded), ("batched_sync_pipeline", pipeline),
+            (f"make_mesh() ({mesh1.size} card)", sharded(mesh1)),
+            ("5 shards on cuda:0", sharded(M.make_mesh(["cuda:0"] * 5)))]
+    out = {}
+    for name, fn in runs:
+        S.reset_launch_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out[name] = fn(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(S.LAUNCHES)
+        collect_shapes(seen, f"20 mesh: {name}", S)
+        cost, best, cur = out[name]
+        err = float((cur.double() - prob.true_delay).abs().max()) * 1e3
+        line = f"# mesh at the engine operating point, {name}: {wall:.3f} s, launches {launches}"
+        if name != "unsharded":
+            cost_u, best_u, cur_u = out["unsharded"]
+            d_best = float((best - best_u).abs().max())
+            d_sync = float((cur - cur_u).abs().max()) * 1e3
+            line += (f"; vs unsharded: PreSync best bit-equal {bool(torch.equal(best, best_u))} "
+                     f"(max {d_best * 1e3:.4f} ms), Sync delays bit-equal "
+                     f"{bool(torch.equal(cur, cur_u))} (max {d_sync:.6f} ms)")
+            check(d_best <= step_s + 1e-9, f"mesh {name}: PreSync best {d_best} s from unsharded")
+            check(d_sync <= MESH_AGREE_MS, f"mesh {name}: Sync {d_sync:.6f} ms from unsharded")
+            if cost is not None:
+                rel = float(((cost - cost_u).abs() / cost_u.abs().clamp(min=1e-30)).max())
+                line += (f", PreSync costs bit-equal {bool(torch.equal(cost, cost_u))} "
+                         f"(rel {rel:.3e})")
+                check(rel <= 1e-4, f"mesh {name}: PreSync costs rel {rel:.3e} from unsharded")
+        print(f"{line}; max offset error {err:.4f} ms ({card})", flush=True)
+        check(err <= OFFSET_TOL_MS, f"mesh {name}: offset error {err:.4f} ms")
+        check(launches["score_quartile_batched"] > 0, f"mesh {name}: K2 was not launched")
+
+    # phase 17's fleet as parallel/multi.py::sync_clips runs it (one PreSync
+    # over per-window grids around each clip's initial guess, 4 Sync passes
+    # at its radius), the window axis sharded 4 ways, then 3 ways padded
+    # with pad_to_multiple (a padded window takes the last window's table,
+    # grid, center and radius, and has no frame)
+    tables, w_open, w_closed, grids, cents, radii, truths = [], [], [], [], [], [], []
+    for sp_i, points, window, truth, init, radius, step in fleet:
+        for p in points:
+            tables.append(sp_i.spline_table)
+            w_open.append(sp_i.build_window(p, p + window, closed=False))
+            w_closed.append(sp_i.build_window(p, p + window, closed=True))
+            grids.append(presync_grid(init, radius, step))
+            cents.append(init)
+            radii.append(radius)
+            truths.append(truth)
+    margin = max(abs(c) + r for c, r in zip(cents, radii))
+    _, w_open = MU.stack_problems(tables, w_open, margin)  # checks the windows are interior
+    _, w_closed = MU.stack_problems(tables, w_closed, margin)
+    grid_np = np.full((len(grids), max(map(len, grids))), np.inf, np.float32)
+    for i, g in enumerate(grids):
+        grid_np[i, : len(g)] = g
+    f32 = dict(dtype=torch.float32, device=dev)
+    grid_t, cent_t, rad_t = (torch.tensor(x, **f32) for x in (grid_np, cents, radii))
+    truth_t = torch.tensor(truths, dtype=torch.float64, device=dev)
+
+    def fleet_run(n):
+        """(unsharded, sharded over n shards on cuda:0) delays of the
+        fleet padded to a multiple of n, and the pad."""
+        wo, W0 = M.pad_to_multiple(w_open, n)
+        wc, _ = M.pad_to_multiple(w_closed, n)
+        pad = wo.counts.shape[0] - W0
+
+        def rep(x):
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+        t = MU.stack_tables(tables + tables[-1:] * pad)
+        g, c, r = rep(grid_t), rep(cent_t), rep(rad_t)
+        mesh = M.make_mesh(["cuda:0"] * n)
+        out = []
+        for sharded in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(5)
+            S.reset_launch_counters()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if sharded:
+                _, cur = M.sharded_presync(t, wo, g, gen, mesh, centers=c)
+            else:
+                _, cur = B.batched_presync(t, wo, g, gen, centers=c)
+            for _ in range(4):
+                cur = (M.sharded_sync(t, wc, cur, c, r, gen, mesh) if sharded
+                       else B.batched_sync(t, wc, cur, c, r, gen)).delay
+            torch.cuda.synchronize()
+            out.append((cur, time.perf_counter() - t1, dict(S.LAUNCHES)))
+            collect_shapes(seen, f"20 fleet: {n} shards" if sharded else "20 fleet: unsharded", S)
+        return out, W0, pad
+
+    for n in (4, 3):
+        ((ref, t_ref, _), (got, wall, launches)), W0, pad = fleet_run(n)
+        err = float((got[:W0].double() - truth_t).abs().max()) * 1e3
+        d = float((got - ref).abs().max()) * 1e3
+        print(f"# fleet ({W0} windows of {len(fleet)} clips, padded by {pad}) over {n} shards on "
+              f"cuda:0: {wall:.3f} s (unsharded {t_ref:.3f} s), launches {launches}; vs "
+              f"unsharded bit-equal {bool(torch.equal(got, ref))} (max {d:.6f} ms); max offset "
+              f"error {err:.4f} ms ({card})", flush=True)
+        check(err <= OFFSET_TOL_MS, f"fleet over {n} shards: offset error {err:.4f} ms")
+        check(d <= MESH_AGREE_MS, f"fleet over {n} shards: {d:.6f} ms from unsharded")
+        check(launches["score_quartile_batched"] > 0, f"fleet over {n} shards: K2 not launched")
+
+
+def hybrid_phase(np, torch, dev, card, ST, TR, seen) -> None:
+    """Phase 21: phase 6's tracker input through lk_track_video_chunked
+    with hybrid=False and hybrid=True (K3 counters zeroed just before
+    each and read just after); ms per pair of each, median of 3 after
+    the counted run; and, to find a GEMM or sum whose order changes
+    with the batch, the hoisted pyramid levels and level-0 templates
+    against those of the first block."""
+    H, Wd = TRACK_HW
+    Hp, Wp = TR._stored_dims(H, Wd, "fine")
+    n_frames = HYBRID_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = torch.randint(0, 256, (n_frames, Hp, Wp), dtype=torch.uint8, device=dev,
+                          generator=gen)
+
+    def track(hybrid):
+        return TR.lk_track_video_chunked(noise, chunk=CHUNK, grid_step=GRID_STEP,
+                                         logical_hw=TRACK_HW, hybrid=hybrid)
+
+    out, info = {}, {}
+    for hybrid in (False, True):
+        ST.reset_launch_counters()
+        out[hybrid] = track(hybrid)
+        torch.cuda.synchronize()
+        launches = dict(ST.LAUNCHES)
+        shapes = sorted(ST.LAUNCH_SHAPES["gather_strips"])
+        collect_shapes(seen, f"21 hybrid={hybrid}", ST)
+        ms = 1e3 * wall_s(lambda: track(hybrid), torch) / (n_frames - 1)
+        info[hybrid] = (launches, shapes, ms)
+        print(f"# tracker hybrid={hybrid} ({n_frames} frames {Wd}x{H}, chunks of {CHUNK}): "
+              f"{ms:.4f} ms/pair, K3 launches {launches['gather_strips']}, shapes (T, Hp, Wp, "
+              f"B, N, dtype) {shapes} ({card})", flush=True)
+        check(launches["gather_strips"] > 0, f"hybrid={hybrid}: K3 was not launched")
+    a, b = out[False], out[True]
+    diff = float((a - b).abs().max())
+    print(f"# hybrid vs block tracks: bit-identical {bool(torch.equal(a, b))}, max "
+          f"{diff:.3e} px", flush=True)
+    check(tuple(b.shape) == tuple(a.shape) and bool(torch.isfinite(b).all()),
+          "hybrid: bad tracks")
+    check(diff <= TRACK_AGREE_PX, f"hybrid and block tracks differ by {diff:.3e} px")
+    check(any(sh[0] == n_frames and sh[3] == CHUNK for sh in info[True][1]),
+          "hybrid: K3 never read the whole clip")
+
+    levels = TR.auto_levels(H, Wd)
+    need, plan, _ = TR._level_plan(levels, TR.LK_ITERS, TR.LK_RADIUS)
+    small = [lvl for lvl in need if lvl > 0]
+    whole = TR.build_pyramid_sparse(noise, levels, small, TRACK_HW, plan)
+    block = TR.build_pyramid_sparse(noise[:CHUNK + 1], levels, small, TRACK_HW, plan)
+    levels_eq = {lvl: bool(torch.equal(whole[lvl][:CHUNK + 1], block[lvl])) for lvl in small}
+    pts = TR.grid_points(Wd, H, GRID_STEP)
+    r0 = TR._fine_plan(levels, TR.LK_ITERS, TR.LK_RADIUS)[-1][3]
+    t_whole = TR._lk_templates(noise, pts, r0)
+    t_block = TR._lk_templates(noise[:CHUNK], pts, r0)
+    tmpl_eq = {k: bool(torch.equal(t_whole[k][:CHUNK], t_block[k])) for k in t_block}
+    print(f"# hoisted ({n_frames} frames) vs first block: pyramid level equal {levels_eq}, "
+          f"level-0 templates equal {tmpl_eq}", flush=True)
 
 
 def main() -> None:
@@ -888,7 +1210,13 @@ def main() -> None:
         import numpy as np
 
         from rssync_tpu_torch import create_sync_problem
+        from rssync_tpu_torch.analysis.metrics import sync_rmse
+        from rssync_tpu_torch.core import ransac as R
         from rssync_tpu_torch.core import sync as SY
+        from rssync_tpu_torch.core.presync import presync_grid
+        from rssync_tpu_torch.parallel import batch as B
+        from rssync_tpu_torch.parallel import mesh as M
+        from rssync_tpu_torch.parallel import multi as MU
         from rssync_tpu_torch.core.problem import compute_problem
         from rssync_tpu_torch.experiments import (
             mb_extract,
@@ -1473,12 +1801,22 @@ def main() -> None:
 
         # -- phase 17: guess-orient and multi-clip ----------------------------
         t0 = time.perf_counter()
-        guess_multi_phase(np, torch, card, recipe_clip, recipe, cache, S, ST, RC, GO,
-                          make_clip, write_clip_files, tmp, seen)
+        fleet_recipes = guess_multi_phase(np, torch, card, recipe_clip, recipe, cache, S, ST,
+                                          RC, GO, make_clip, write_clip_files, tmp, seen)
+        # phase 20's fleet: both clips' problems from phase 17's track cache
+        fleet = []
+        for i, (r, c) in enumerate(fleet_recipes):
+            sp_i, fs, fe = RC._prepare_problem(r, "lk", i, cache, Timings(), False, device=dev)
+            inp = r["input"]
+            fleet.append((sp_i, make_syncpoints(r["params"], fs, fe),
+                          int(r["params"]["sync_window"]), c.true_delay,
+                          float(inp["initial_guess"]) / 1000,
+                          float(inp["simple_presync_radius"]) / 1000,
+                          float(inp["simple_presync_step"]) / 1000))
         phase("17 (guess-orient and multi-clip)", t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del recipe_clip
+    del recipe_clip, fleet_recipes
 
     # -- phase 18: K1/K2/K3 against their plain versions at every shape
     # phases 16-17 launched them at that phases 3, 10 and 14 did not cover
@@ -1486,21 +1824,34 @@ def main() -> None:
     covered = {"score_quartile": set(shapes["score_quartile"]),
                "score_quartile_batched": set(shapes["score_quartile_batched"]),
                "gather_strips": set(k3_shapes) | set(e2_shapes)}
-    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-    recipe_rows = {name: [] for name in covered}
-    for name in covered:
-        new = sorted(sh for sh in seen.get(name, {}) if sh not in covered[name])
-        print(f"# {name}: {len(seen.get(name, {}))} launch shapes in phases 16-17, "
-              f"{len(new)} not compared before: {new}", flush=True)
-        for i, sh in enumerate(new):
-            if name == "gather_strips":
-                row = compare_strips(np, torch, ST, sh, dev, 200 + i, False, flush)
-            else:
-                row = compare_score(np, torch, S, name, sh, dev, 200 + i, flush)
-            row["path"] = sorted(set(seen[name][sh]))
-            recipe_rows[name].append(row)
-    del flush
+    recipe_rows = compare_new_shapes(np, torch, S, ST, dev, seen, covered, 200,
+                                     "phases 16-17")
     phase("18 (K1/K2/K3 vs plain at the recipe paths' shapes)", t0)
+
+    # -- phase 19: the long-term drift run at full size ---------------------
+    t0 = time.perf_counter()
+    seen = {}  # kernel -> launch shape -> the phase 19-21 runs that launched it
+    longterm_phase(np, torch, dev, card, S, R, B, make_engine_problem, compute_problem,
+                   sync_rmse, seen)
+    phase("19 (long-term drift, single-frame guessers)", t0)
+
+    # -- phase 20: the window mesh ------------------------------------------
+    t0 = time.perf_counter()
+    mesh_phase(np, torch, dev, card, S, B, M, MU, create_sync_problem, prob, syncpoint_windows,
+               presync_grid, fleet, radius_s, PRESYNC_STEP_MS / 1000, seen)
+    del fleet
+    phase("20 (the window mesh, batched_sync_pipeline, the sharded fleet)", t0)
+
+    # -- phase 21: the hybrid tracker ---------------------------------------
+    t0 = time.perf_counter()
+    hybrid_phase(np, torch, dev, card, ST, TR, seen)
+    phase("21 (hybrid vs block tracker)", t0)
+
+    # -- phase 22: K1/K2/K3 against their plain versions at every shape
+    # phases 19-21 launched them at that no earlier phase compared
+    t0 = time.perf_counter()
+    new_rows = compare_new_shapes(np, torch, S, ST, dev, seen, covered, 300, "phases 19-21")
+    phase("22 (K1/K2/K3 vs plain at the shapes of phases 19-21)", t0)
 
     csrc = "rssync_tpu_torch/csrc/"
     h = "rssync_tpu_torch.experiments."
@@ -1514,14 +1865,15 @@ def main() -> None:
     entries = [
         ("score_quartile", "rssync_tpu/ops/pallas_score.py:139", csrc + "score_quartile.cu",
          engine, launches["score_quartile"], compared["score_quartile"],
-         compared["score_quartile"] + recipe_rows["score_quartile"]),
+         compared["score_quartile"] + recipe_rows["score_quartile"] + new_rows["score_quartile"]),
         ("score_quartile_batched", "rssync_tpu/ops/pallas_score.py:230",
          csrc + "score_quartile.cu", engine, launches["score_quartile_batched"],
          compared["score_quartile_batched"],
-         compared["score_quartile_batched"] + recipe_rows["score_quartile_batched"]),
+         compared["score_quartile_batched"] + recipe_rows["score_quartile_batched"]
+         + new_rows["score_quartile_batched"]),
         ("gather_strips", "rssync_tpu/frontend/tracking.py:434", csrc + "gather_strips.cu",
          tracker, k3_launches["gather_strips"], strip_rows[: len(k3_shapes)],
-         strip_rows + recipe_rows["gather_strips"]),
+         strip_rows + recipe_rows["gather_strips"] + new_rows["gather_strips"]),
         ("u8_to_bf16", "experiments/r4_u8pass.py:54", csrc + "convert_u8.cu", h + "r4_u8pass",
          probe_paths["e5"][0], e5_rows, e5_rows),
         ("u8_to_bf16", "experiments/r4_u8pass2.py:61", csrc + "convert_u8.cu",

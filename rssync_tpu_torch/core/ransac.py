@@ -88,6 +88,27 @@ def guess_motion_rows(
     return _pick_best(v, med)
 
 
+def guess_motion_from_pairs(
+    P: torch.Tensor, count, r0: torch.Tensor, r1: torch.Tensor
+) -> torch.Tensor:
+    """Single-frame guesser on given pairs: P (3, N) residual rows
+    (padded columns zero), count the valid rows, r0/r1 (iters,) row
+    indices. Returns the (3,) unit direction; one row of
+    guess_motion_rows, so it launches the scoring kernel with F = 1."""
+    counts = torch.as_tensor(count, dtype=torch.int32, device=P.device).reshape(1)
+    return guess_motion_rows(P[:, None], counts, r0[None], r1[None])[0]
+
+
+def guess_motion(
+    P: torch.Tensor, count, generator: torch.Generator, iters: int
+) -> torch.Tensor:
+    """Full single-frame guesser: draw `iters` pairs, then score them
+    (ref: core_private.cpp:34-59). P (3, N) -> (3,)."""
+    counts = torch.as_tensor(count, dtype=torch.int32, device=P.device)
+    r0, r1 = sample_pairs(generator, iters, counts)
+    return guess_motion_from_pairs(P, counts, r0, r1)
+
+
 def guess_motion_window(
     P: torch.Tensor, counts: torch.Tensor, generator: torch.Generator, iters: int
 ) -> torch.Tensor:

@@ -422,12 +422,14 @@ def init_motion(
 
 def init_motion_batched(
     table: SplineTable, wins: TrackWindow, delays: torch.Tensor,
-    generator: torch.Generator,
+    generator: torch.Generator, pairs=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """init_motion over a stack of windows (leading W axis), scored in
-    one batched kernel call. Returns (M (W, F, 3), var_k (W, F))."""
+    one batched kernel call. pairs: RANSAC index pairs (r0, r1), each
+    (W, F, SYNC_RANSAC_ITERS), in place of the draw from `generator`.
+    Returns (M (W, F, 3), var_k (W, F))."""
     P = compute_problem(table, wins, delays)  # (W, 3, F, N)
-    M = guess_motion_window_batched(P, wins.counts, generator, SYNC_RANSAC_ITERS)
+    M = guess_motion_window_batched(P, wins.counts, generator, SYNC_RANSAC_ITERS, pairs=pairs)
     return M, _var_k(P, M)
 
 

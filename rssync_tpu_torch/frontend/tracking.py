@@ -19,9 +19,15 @@ frame pair and samples it at a fixed grid (src/core_testcode.cpp:
 
 The pyramid keeps only the levels the schedule reads, each computed
 from the previous one by two matmuls against banded downsampling
-matrices whose weights are rounded to bfloat16 and multiplied in
-float32 (rssync_tpu multiplies bf16 operands with f32 accumulation;
-u8 pixels are exact in both).
+matrices whose weights are rounded to bfloat16 (rssync_tpu multiplies
+bf16 operands with f32 accumulation; u8 pixels are exact in bf16). The
+port multiplies in float64, where u8 pixels times these weights sum
+exactly (at most 47 significant bits): a level then does not depend on
+the GEMM's summation order, so neither on the batch it is computed in
+(the hybrid structure's whole-clip levels equal the block's) nor on the
+device. Float32 sums are not exact from level 5 on (28 bits after the
+first GEMM), and a batch of 241 frames against one of 17 moved a level-5
+pixel by one u8 level on an H100.
 
 Entry points take their device from the frames tensor. Frames are
 (T, H, W) uint8 or float32; points are (N, 2) xy pixels.
@@ -174,9 +180,9 @@ def _down_mat_stored(n: int, src_lvl: int, dst_lvl: int,
 def _down_weights(n: int, src_lvl: int, dst_lvl: int, n_store: int,
                   out_store: int, device: torch.device) -> torch.Tensor:
     """`_down_mat_stored` on `device`, rounded to bfloat16 (as
-    rssync_tpu feeds it to its bf16 matmul) and held in float32."""
+    rssync_tpu feeds it to its bf16 matmul) and held in float64."""
     m = torch.from_numpy(_down_mat_stored(n, src_lvl, dst_lvl, n_store, out_store))
-    return m.to(torch.bfloat16).to(_F32).to(device)
+    return m.to(torch.bfloat16).to(torch.float64).to(device)
 
 
 def _stored_dims(h: int, w: int, kind: str | None) -> tuple[int, int]:
@@ -217,7 +223,7 @@ def build_pyramid_sparse(
     """The levels in `need` only, each from the previous needed level by
     two matmuls (rows, then columns) against composed banded matrices.
     Pixels and weights are rounded to bfloat16, the products summed in
-    float32. img: (B, H, W); with `logical_hw` (the unpadded level-0
+    float64 (exactly, for u8 levels: see the module docstring). img: (B, H, W); with `logical_hw` (the unpadded level-0
     dims; img may then carry storage padding) and `pad_plan` ({level:
     'fine' | 'lane' | None}, see _stored_dims) every level is emitted
     with its storage padding folded into the weights. Returns {level:
@@ -238,7 +244,7 @@ def build_pyramid_sparse(
             hs, ws = _stored_dims(hd, wd, pad_plan.get(lvl))
             R = _down_weights(h, prev_lvl, lvl, prev.shape[-2], hs, img.device)
             C = _down_weights(w, prev_lvl, lvl, prev.shape[-1], ws, img.device)
-            x = prev.to(torch.bfloat16).to(_F32)
+            x = prev.to(torch.bfloat16).to(torch.float64)
             pyr[lvl] = _cast_like(torch.matmul(torch.matmul(R, x), C.T), store)
             prev_hw = (hd, wd)
         prev_lvl, prev = lvl, pyr[lvl]
@@ -414,10 +420,11 @@ def _lk_level(img_a, img_b, pts_level, guess, radius: int, iters: int,
 
 
 def _lk_iterate(img_b, pts_level, guess, tmpl, radius: int, iters: int,
-                margin: int) -> torch.Tensor:
+                margin: int, fidx: torch.Tensor | None = None) -> torch.Tensor:
     """The img_b half of an LK level: fetch each point's search region
     once, then `iters` Gauss-Newton steps against the templates `tmpl`
-    (from _lk_templates)."""
+    (from _lk_templates; its B axis matches guess's). With fidx (B,)
+    int32, img_b holds a whole clip and pair b searches frame fidx[b]."""
     w = 2 * radius + 1
     B = guess.shape[0]
     dev = guess.device
@@ -451,7 +458,7 @@ def _lk_iterate(img_b, pts_level, guess, tmpl, radius: int, iters: int,
         obx = torch.clamp(torch.div(ox, LANE, rounding_mode="floor"), 0, NB - 2)
         roff = torch.clamp((oy - oyq * 8).to(_F32), max=float(STRIP_ROWS - S))
         rem = torch.clamp((ox - obx * LANE).to(_F32), max=float(2 * LANE - Sc))
-        wide = gather_strips(img_b, oyq, obx)  # (B, N, 40, 256)
+        wide = gather_strips(img_b, oyq, obx, fidx)  # (B, N, 40, 256)
     else:
         # clamp the block (not the remainder): negative rem positions
         # edge-replicate through the clamped taps, as in the strip route
@@ -459,7 +466,7 @@ def _lk_iterate(img_b, pts_level, guess, tmpl, radius: int, iters: int,
         obx = torch.clamp(torch.div(ox, LANE, rounding_mode="floor"), 0, max(NB_l - 2, 0))
         rem = (ox - obx * LANE).to(_F32)  # integer-valued
         roff = torch.zeros_like(rem)
-        wide = gather_blocks(img_b, oy, obx, S)  # (B, N, S, 256)
+        wide = gather_blocks(img_b, oy, obx, S, fidx)  # (B, N, S, 256)
     # the narrowing select: columns clamp(rem + j) of the region. rem is
     # integral, so rssync_tpu's one-hot tap matmul picks exactly these
     cols = torch.clamp(rem.to(torch.int64)[..., None]
@@ -631,14 +638,19 @@ def _fine_plan(levels: int, iters: int, radius: int) -> list[tuple[int, int, int
     return [(0, min(iters, 8), MARGIN_ENTRY, radius)]
 
 
-def _lk_core(pyr_pairs: dict, pts, levels: int, radius: int, iters: int) -> torch.Tensor:
+def _lk_core(pyr_pairs: dict, pts, levels: int, radius: int, iters: int,
+             level0: tuple | None = None) -> torch.Tensor:
     """Tracker body over per-level (img_a, img_b) batches, keyed by level
     (only the levels of `_needed_levels` exist). pts: (N, 2) host float32
-    grid (static templates) or a tensor. Returns (B, N, 2) positions."""
+    grid (static templates) or a tensor. level0: (clip, templates,
+    fidx): level 0 then searches the whole storage-padded clip at
+    per-pair frame indices against templates made beforehand (the
+    hybrid structure), and pyr_pairs needs no level 0. Returns (B, N, 2)
+    positions."""
     plan = _fine_plan(levels, iters, radius)
     entry = plan[0][0]
-    img0 = pyr_pairs[entry][0]
-    B, dev = img0.shape[0], img0.device
+    ref = level0[2] if level0 is not None else pyr_pairs[entry][0]
+    B, dev = ref.shape[0], ref.device
 
     if levels > entry + 1:
         lvl_glob = levels - 1
@@ -651,6 +663,10 @@ def _lk_core(pyr_pairs: dict, pts, levels: int, radius: int, iters: int) -> torc
         d = torch.zeros((B, *pts.shape), dtype=_F32, device=dev)
 
     for lvl, it_l, m_l, r_l in plan:
+        if lvl == 0 and level0 is not None:
+            clip, tmpl, fidx = level0
+            d = _lk_iterate(clip, pts, d, tmpl, r_l, it_l, m_l, fidx=fidx)
+            continue
         scale = float(2**lvl)
         d = _lk_level(
             pyr_pairs[lvl][0], pyr_pairs[lvl][1], pts / scale, d / scale,
@@ -753,14 +769,23 @@ def lk_track_video(frames: torch.Tensor, pts=None, levels: int | None = None,
 def lk_track_video_chunked(frames: torch.Tensor, pts=None, chunk: int = 16,
                            levels: int | None = None, radius: int = LK_RADIUS,
                            iters: int = LK_ITERS, grid_step: int | None = None,
-                           logical_hw: tuple[int, int] | None = None) -> torch.Tensor:
+                           logical_hw: tuple[int, int] | None = None,
+                           hybrid: bool | None = None) -> torch.Tensor:
     """Track (T, H, W) consecutive frames -> (T-1, N, 2) in blocks of
     `chunk` pairs (chunk + 1 frames each, consecutive blocks sharing a
     frame). Requires (T-1) % chunk == 0: callers pad by repeating the
     last frame, which tracks to zero flow. logical_hw: the unpadded
     (H, W) when frames carry the level-0 storage padding
     (pad_frames_host); the level-0 pad then never runs on the device.
-    rssync_tpu's opt-in `hybrid=` structure is not ported."""
+
+    hybrid: the per-frame passes (the small pyramid levels and the
+    level-0 templates) run once over the whole clip, each block slices
+    them, and level 0 fetches its search strips from the whole clip at
+    per-pair frame indices (`_lk_iterate(fidx=)`), so no full-size
+    block is sliced. Off by default, as in rssync_tpu (measured slower
+    there, tracking.py:1196-1208). Where the level-0 plan cannot serve
+    it (level 0 not a fine level or not the last one, no strip route,
+    non-integer points) the block structure runs, as in rssync_tpu."""
     H, W = logical_hw if logical_hw is not None else frames.shape[1:3]
     if levels is None:
         levels = auto_levels(H, W)
@@ -772,11 +797,26 @@ def lk_track_video_chunked(frames: torch.Tensor, pts=None, chunk: int = 16,
         frames = _pad_lanes(frames, _level_plan(levels, iters, radius)[2])
     else:
         _check_prepadded(frames, logical_hw, levels, radius, iters)
-    outs = [
-        _lk_video_core(frames[s : s + chunk + 1], pts, levels, radius, iters,
-                       logical_hw=(H, W))
-        for s in range(0, T - 1, chunk)
-    ]
+    need, pad_plan, fine0 = _level_plan(levels, iters, radius)
+    plan = _fine_plan(levels, iters, radius)
+    if (hybrid and fine0 and plan[-1][0] == 0 and strip_path_ok(frames, len(pts))
+            and bool(np.all(pts == np.round(pts)))):
+        small = [lvl for lvl in need if lvl > 0]
+        pyr = build_pyramid_sparse(frames, levels, small, (H, W), pad_plan)
+        tmpl0 = _lk_templates(frames, pts, plan[-1][3])
+        outs = []
+        for s in range(0, T - 1, chunk):
+            pairs = {lvl: (pyr[lvl][s : s + chunk], pyr[lvl][s + 1 : s + chunk + 1])
+                     for lvl in small}
+            tmpl = {k: v[s : s + chunk] for k, v in tmpl0.items()}
+            fidx = torch.arange(s + 1, s + 1 + chunk, dtype=torch.int32, device=frames.device)
+            outs.append(_lk_core(pairs, pts, levels, radius, iters, (frames, tmpl, fidx)))
+    else:
+        outs = [
+            _lk_video_core(frames[s : s + chunk + 1], pts, levels, radius, iters,
+                           logical_hw=(H, W))
+            for s in range(0, T - 1, chunk)
+        ]
     return torch.cat(outs) if outs else torch.zeros((0, *pts.shape), dtype=_F32,
                                                     device=frames.device)
 

@@ -96,3 +96,45 @@ def slerp(p: torch.Tensor, q: torch.Tensor, t) -> torch.Tensor:
     m1 = torch.where(big, torch.sin((1.0 - t) * theta) / safe_sin, 1.0 - t)
     m2 = torch.where(big, torch.sin(t * theta) / safe_sin, t)
     return m1 * p + m2 * q
+
+
+def _double(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.sum(p * q, dim=-1, keepdim=True) * q - p
+
+
+def _bisect(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (p + q)
+
+
+def squad(p0, p1, p2, p3, t) -> torch.Tensor:
+    """Cubic quaternion interpolation between p1 and p2, slerp-based
+    de Casteljau (ref: quat.cpp:76-87; unused by the reference engine
+    but part of the public math surface)."""
+    a0 = _bisect(_double(p0, p1), p2)
+    a1 = _bisect(_double(p1, p2), p3)
+    b1 = _double(a1, p2)
+    i0, i1, i2, i3 = p1, (a0 + 2.0 * p1) / 3.0, (b1 + 2.0 * p2) / 3.0, p2
+    j0 = slerp(i0, i1, t)
+    j1 = slerp(i1, i2, t)
+    j2 = slerp(i2, i3, t)
+    return slerp(slerp(j0, j1, t), slerp(j1, j2, t), t)
+
+
+def _lerp(p, q, t):
+    return p * (1.0 - t) + q * t
+
+
+def quad(p0, p1, p2, p3, t) -> torch.Tensor:
+    """Lerp-based Bezier variant of squad (ref: quat.cpp:91-101)."""
+    t = torch.as_tensor(t, dtype=p1.dtype, device=p1.device)
+    if t.dim() == p1.dim() - 1:
+        t = t[..., None]
+    a0 = _bisect(_double(p0, p1), p2)
+    a1 = _bisect(_double(p1, p2), p3)
+    b1 = _double(a1, p2)
+    a0 = (a0 + 2.0 * p1) / 3.0
+    b1 = (b1 + 2.0 * p2) / 3.0
+    j0 = _lerp(p1, a0, t)
+    j1 = _lerp(a0, b1, t)
+    j2 = _lerp(b1, p2, t)
+    return _lerp(_lerp(j0, j1, t), _lerp(j1, j2, t), t)

@@ -24,6 +24,8 @@ to bf16 with round-to-nearest-even.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F_
 
@@ -39,6 +41,8 @@ LAUNCHES = {"score_quartile": 0, "score_quartile_batched": 0, "score_quartile_i1
 #: the (B, F, N, I) shapes each wrapper launched its kernel at
 LAUNCH_SHAPES = {"score_quartile": set(), "score_quartile_batched": set(),
                  "score_quartile_i16": set()}
+#: guards the counts: parallel/mesh.py launches from a thread per device
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counters() -> None:
@@ -179,8 +183,9 @@ def _launch(nP, v, counts, name: str) -> torch.Tensor:
         raise RuntimeError(
             f"score_quartile launch failed: {lib.score_quartile_error_string(rc).decode()}"
         )
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[name].add((B, F, N, I))
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCH_SHAPES[name].add((B, F, N, I))
     return out
 
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rssync_tpu_torch.ops import quat as quat_ops
+
 
 def fit_natural_cubic(y: np.ndarray) -> np.ndarray:
     """Fit natural cubic splines to uniformly-indexed samples.
@@ -139,3 +141,68 @@ def eval_spline_packed(
     h_in = p - pf
     idx = torch.clamp(xi, 0, n - 1)
     return horner_eval(packed[:, idx.long()], xi, h_in, n)
+
+
+def _unpacked_position(coeffs: torch.Tensor, i0: torch.Tensor, p: torch.Tensor):
+    """(gathered coefficients (..., R, 4), xi, h (..., 1), below | above)
+    of x = i0 + p against an unpacked (n, R, 4) table: floor(p) folded
+    into the index, h measured as in horner_eval's branches."""
+    n = coeffs.shape[0]
+    pf = torch.floor(p)
+    xi = i0 + pf.to(torch.int32)
+    h_in = p - pf
+    cf = coeffs[torch.clamp(xi, 0, n - 1).long()]  # (..., R, 4)
+    below = xi < 0
+    above = xi > n - 2
+    h_lo = xi.to(h_in.dtype) + h_in
+    h_hi = (xi - (n - 1) - (xi >= n).to(xi.dtype)).to(h_in.dtype) + h_in
+    h = torch.where(below, h_lo, torch.where(above, h_hi, h_in))[..., None]
+    return cf, h, (below | above)[..., None]
+
+
+def eval_spline(coeffs: torch.Tensor, i0: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Evaluate R splines at x = i0 + p from unpacked coefficients.
+
+    coeffs: (n, R, 4) (y, b, c, d) per knot per row, as
+    fit_natural_cubic returns them; i0: (...) int32; p: (...) small
+    float offset. Returns (..., R), row axis trailing (the packed form
+    is eval_spline_packed). ref: ndspline.cpp:21-27 with the boundary
+    branches of the module docstring."""
+    cf, h, outside = _unpacked_position(coeffs, i0, p)
+    yk, bk, ck, dk = cf.unbind(-1)
+    cubic = ((dk * h + ck) * h + bk) * h + yk
+    quad = (ck * h + bk) * h + yk
+    return torch.where(outside, quad, cubic)
+
+
+def eval_spline_deriv(coeffs: torch.Tensor, i0: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """d/dx of eval_spline (ref: minispline.cpp:57-64, ndspline.cpp:29-35)."""
+    cf, h, outside = _unpacked_position(coeffs, i0, p)
+    _, bk, ck, dk = cf.unbind(-1)
+    cubic = (3.0 * dk * h + 2.0 * ck) * h + bk
+    quad = 2.0 * ck * h + bk
+    return torch.where(outside, quad, cubic)
+
+
+def rotational_deriv(coeffs: torch.Tensor, i0: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Angular-velocity quaternion of a quaternion spline:
+    2 * conj(q) * q' / |q|^2 (ref: ndspline::rderiv, ndspline.cpp:45-49).
+    coeffs holds exactly 4 rows (w, x, y, z). Returns (..., 4) whose
+    vector part is the body rate in spline-index units."""
+    q = eval_spline(coeffs, i0, p)
+    dq = eval_spline_deriv(coeffs, i0, p)
+    n2 = torch.clamp(torch.sum(q * q, dim=-1, keepdim=True), min=1e-30)
+    return 2.0 * quat_ops.mul(quat_ops.conj(q), dq) / n2
+
+
+def rotational_deriv_numeric(coeffs: torch.Tensor, i0: torch.Tensor, p: torch.Tensor,
+                             eps: float = 1e-7) -> torch.Tensor:
+    """Numeric-difference variant (ref: ndspline::rderiv_numeric,
+    ndspline.cpp:37-43): conj(normalize(q(t))) * normalize(q(t + eps)) /
+    eps with the scalar part zeroed. The reference formula lacks the
+    factor 2 of `rotational_deriv`, so this is half the body rate,
+    replicated as it is."""
+    q_l = quat_ops.normalize(eval_spline(coeffs, i0, p))
+    q_r = quat_ops.normalize(eval_spline(coeffs, i0, p + eps))
+    out = quat_ops.mul(quat_ops.conj(q_l), q_r) / eps
+    return torch.cat([torch.zeros_like(out[..., :1]), out[..., 1:]], dim=-1)

@@ -1,1 +1,2 @@
-"""Batched PreSync / Sync over a leading window axis."""
+"""Batched PreSync / Sync over a leading window axis, stacked tables for
+multi-clip batches, and the window axis sharded over devices."""

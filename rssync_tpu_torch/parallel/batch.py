@@ -114,15 +114,39 @@ def batched_presync(
 def batched_sync(
     table: SplineTable, wins: TrackWindow, initial_delays: torch.Tensor,
     search_centers: torch.Tensor, search_radius, generator: torch.Generator,
-    motion_opt: str = "irls",
+    motion_opt: str = "irls", pairs=None,
 ) -> SyncResult:
     """Fine Sync over the window axis. initial_delays, search_centers:
     (W,). GuessMotion of every window is one batched scoring call.
     motion_opt: "irls" or "lbfgs" (core/sync.py::sync_loop); rssync_tpu
-    computes the same as a vmap of its sync_window."""
+    computes the same as a vmap of its sync_window. pairs: GuessMotion's
+    RANSAC index pairs (r0, r1), each (W, F, SYNC_RANSAC_ITERS), in
+    place of the draw from `generator`."""
     radius = torch.as_tensor(
         search_radius, dtype=initial_delays.dtype, device=initial_delays.device
     ).expand(initial_delays.shape)
     with torch.no_grad():
-        M0, var_k = init_motion_batched(table, wins, initial_delays, generator)
+        M0, var_k = init_motion_batched(table, wins, initial_delays, generator, pairs)
     return sync_loop(table, wins, initial_delays, M0, var_k, search_centers, radius, motion_opt)
+
+
+def batched_sync_pipeline(
+    table: SplineTable, wins_open: TrackWindow, wins_closed: TrackWindow,
+    delays: torch.Tensor, initial_delay, search_radius, generator: torch.Generator,
+    passes: int = 4, motion_opt: str = "irls",
+) -> tuple[torch.Tensor, list[SyncResult]]:
+    """The whole per-clip engine: batched PreSync over the delay grid on
+    the open windows, then `passes` Sync passes on the closed ones (the
+    reference's 4x loop, ref core_testcode.cpp:308-314) centered on
+    initial_delay, each re-initializing motion at the delay the last
+    one reached, exactly like separate calls drawing from `generator`
+    in turn. Returns (presync_best (W,), [SyncResult per pass])."""
+    _, best = batched_presync(table, wins_open, delays, generator)
+    centers = torch.full_like(best, float(initial_delay))
+    cur, results = best, []
+    for _ in range(passes):
+        res = batched_sync(table, wins_closed, cur, centers, search_radius, generator,
+                           motion_opt)
+        cur = res.delay
+        results.append(res)
+    return best, results

@@ -249,7 +249,8 @@ def test_port_imports_neither_jax_nor_rssync_tpu(tmp_path):
         "sys.modules['cv2'] = None  # import cv2 raises ImportError",
         f"for m in {mods!r}: importlib.import_module(m)",
         "for m in ('rssync_tpu_torch.pipeline.__main__', 'rssync_tpu_torch.frontend.decode_pool',",
-        "          'rssync_tpu_torch.parallel.multi', 'rssync_tpu_torch.pipeline.guess_orient'):",
+        "          'rssync_tpu_torch.parallel.multi', 'rssync_tpu_torch.pipeline.guess_orient',",
+        "          'rssync_tpu_torch.parallel.mesh', 'rssync_tpu_torch.analysis.plot'):",
         "    assert m in sys.modules, m",
         "from rssync_tpu_torch.testing.engine_problem import make_engine_problem",
         "from rssync_tpu_torch import create_sync_problem",
