@@ -6,6 +6,7 @@ files -> sync, the reference engine's golden data, the recipe pipeline
 window mesh and the hybrid tracker.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier K3 source
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, the
@@ -60,8 +61,15 @@ Phases (any failure exits non-zero and prints no result line):
    synced on the card and on the CPU: tracks within 2e-3 px, delays
    within 0.1 ms;
 10. K3 against its plain version at every shape phase 6 launched it
-    at, plus one float32 shape with frame indices: bit-equal, kernel,
-    plain and `index_select` times;
+    at, plus edge shapes (STRIP_EDGES: float32, every strip at the last
+    valid row and block, T != B with random frame indices, one strip,
+    a prime strip count, runs past a CTA's index chunk): bit-equal
+    (`torch.equal`), kernel, plain and `index_select` times (events, L2
+    cold), kernel and `index_select` 200 calls back to back (host
+    included), the bound and its share; with --parent-csrc DIR the
+    kernel of an earlier gather_strips.cu (the first K3 kernel's C
+    interface), built alone, is timed beside (events, and profiler
+    durations in phase 23), here and wherever K3 is compared;
 11. the probe paths of rssync_tpu_torch/experiments at the tracker's
     operating point (241 frames of 2704x2028 stored 2816x2056, made
     once from a numpy seed), each through its harness's `run` with its
@@ -156,7 +164,11 @@ Phases (any failure exits non-zero and prints no result line):
     frame indices; the hoisted pyramid levels and level-0 templates
     against the first block's (printed);
 22. K1/K2/K3 against their plain versions, bit-equal, at every shape
-    phases 19-21 launched them at that no earlier phase compared.
+    phases 19-21 launched them at that no earlier phase compared;
+23. K3's kernel duration from torch.profiler (and index_select's, and
+    the parent's) at every shape phases 10, 14, 18 and 22 compared,
+    beside the event time and the bound; last, since a profiler
+    session may slow the host's later launches.
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
@@ -171,6 +183,7 @@ their launches in phase 16 (a). The last line is
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import io
@@ -182,6 +195,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 #: engine accuracy target (ms) and card-vs-CPU agreement (ms)
 OFFSET_TOL_MS = 0.5
@@ -233,6 +247,21 @@ HYBRID_FRAMES = 15 * CHUNK + 1
 #: phase 19: tests/test_longterm.py's 400 s log drifting 1e-4 s/s
 LONGTERM = dict(seed=4, duration=400.0, fps=30.0, n_features=40, sync_window=30,
                 syncpoint_distance=600, true_delay=0.021, delay_drift=1e-4)
+#: phase 10: K3's edge shapes, (T, Hp, Wp, B, N, dtype), seed, random
+#: frame indices, every strip at the last valid row and block: float32 at
+#: the tracker's level-2 shape; every strip at the edge; T != B; one
+#: strip; 1163 strips (prime: a ragged last run at any grid); 160 000
+#: strips (a CTA's run passes its 128-strip index chunk at 8 CTAs an SM
+#: on any card of up to 156 SMs)
+STRIP_EDGES = (
+    ((16, 536, 768, 16, 130, "torch.float32"), 90, False, False),
+    ((16, 536, 768, 16, 130, "torch.uint8"), 91, False, True),
+    ((9, 96, 384, 5, 17, "torch.float32"), 99, True, False),
+    ((9, 96, 384, 5, 17, "torch.float32"), 95, True, True),
+    ((2, 40, 256, 1, 1, "torch.uint8"), 92, True, False),
+    ((6, 120, 640, 1, 1163, "torch.uint8"), 93, True, False),
+    ((2, 48, 384, 160, 1000, "torch.uint8"), 94, True, False),
+)
 #: phase 20: sharded vs unsharded Sync delays on the card (ms); the split
 #: may reorder a float32 reduction, and 0.01 ms is a tenth of the
 #: card-vs-CPU limit
@@ -247,27 +276,6 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
-
-
-def cuda_ms(fn, torch, flush, reps: int = 5) -> float:
-    """Median of `reps` CUDA-event-timed calls after one warm-up. Before
-    each call `flush` (1 GiB on the card) is overwritten: the call finds
-    the L2 cache cold, and the device is still busy with the flush while
-    the host enqueues the start event and the call, so the events time
-    the call's device work and not the wrapper's host overhead."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def wall_s(fn, torch, reps: int = 3) -> float:
@@ -330,19 +338,6 @@ def patch_kernel_attrs(itemsize: int, size: int, per_block: int) -> dict:
     return dict(regs=regs.value, local_bytes=local.value)
 
 
-def back_to_back_ms(fn, torch, reps: int = 200) -> float:
-    """ms a call of `fn` launched `reps` times in one event pair (L2 warm;
-    the host's enqueue cost shows where it exceeds the device's)."""
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound(n_bytes: float, n_ops: float, ops_s: float = F32_OPS_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it) at the published
     peaks: bytes over the HBM rate, operations over `ops_s` (the f32
@@ -363,7 +358,7 @@ def score_bound(torch, nP, v, counts, out, i16: bool) -> tuple[float, str]:
     return bound(n_bytes, n * n_feat, n / sum(k / rate for k, rate in ops))
 
 
-def compare_score(np, torch, S, name, shape, dev, seed, flush):
+def compare_score(np, torch, S, PS, name, shape, dev, seed, flush):
     """K1/K2 vs plain version at one (B, F, N, I) launch shape; returns
     the measurements."""
     B, F, N, I = shape
@@ -386,8 +381,8 @@ def compare_score(np, torch, S, name, shape, dev, seed, flush):
     out = dict(
         B=B, F=F, N=N, I=I, bit_equal=equal, max_rel_err=rel,
         max_abs_err=float((got - want).abs().max()), argmin_agree=agree,
-        ms=cuda_ms(lambda: kern(nP, v, counts), torch, flush),
-        plain_ms=cuda_ms(lambda: plain(nP, v, counts), torch, flush),
+        ms=PS.event_ms(torch, lambda: kern(nP, v, counts), flush, 5),
+        plain_ms=PS.event_ms(torch, lambda: plain(nP, v, counts), flush, 5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         **score_kernel_attrs(N, False),
     )
@@ -399,55 +394,88 @@ def compare_score(np, torch, S, name, shape, dev, seed, flush):
     return out
 
 
-def compare_strips(np, torch, ST, shape, dev, seed, random_fidx, flush):
-    """K3 vs plain version at one (T, Hp, Wp, B, N, dtype) launch shape,
-    and `index_select` over the (T * Hp * Wp/128, 128) row view fetching
-    the same strips; returns the measurements."""
+def compare_strips(np, torch, ST, PS, shape, dev, seed, random_fidx, flush, parent=None,
+                   edge=False):
+    """K3 vs plain version at one (T, Hp, Wp, B, N, dtype) launch shape
+    (with `edge`, every strip at the last valid row and block), and
+    `index_select` over the (T * Hp * Wp/128, 128) row view fetching the
+    same strips; with `parent` (an earlier gather_strips.cu built by
+    profile_strips.build_parent) its kernel's event time beside. Event
+    times, and 200 calls back to back (host included) of the kernel's
+    wrapper and of index_select; the profiler's durations come in phase
+    23. Returns the measurements."""
     T, Hp, Wp, B, N, dtype = shape
-    rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    if dtype == "torch.uint8":
-        img = torch.randint(0, 256, (T, Hp, Wp), dtype=torch.uint8, device=dev, generator=gen)
-    else:
-        img = torch.rand((T, Hp, Wp), dtype=torch.float32, device=dev, generator=gen)
-    NB = Wp // ST.LANE
-    i32 = dict(dtype=torch.int32, device=dev)
-    oyq = torch.tensor(rng.integers(0, (Hp - ST.STRIP_ROWS) // 8 + 1, (B, N)), **i32)
-    obx = torch.tensor(rng.integers(0, NB - 1, (B, N)), **i32)
-    fidx = torch.tensor(rng.integers(0, T, B) if random_fidx else np.arange(B), **i32)
-    got = ST.gather_strips(img, oyq, obx, fidx)
+    img, oyq, obx, fidx = PS.strip_inputs(torch, ST, shape, dev, seed, random_fidx, edge)
+
+    def kern():
+        return ST.gather_strips(img, oyq, obx, fidx)
+
+    got = kern()
     want = ST.gather_strips_ref(img, oyq, obx, fidx)
-    rows = (fidx.long()[:, None, None] * Hp + 8 * oyq.long()[..., None]
-            + torch.arange(ST.STRIP_ROWS, device=dev))  # (B, N, 40)
-    idx = (rows[..., None] * NB + obx.long()[..., None, None]
-           + torch.arange(2, device=dev)).reshape(-1)
-    src = img.view(T * Hp * NB, ST.LANE)
-    lib = torch.index_select(src, 0, idx).view(B, N, ST.STRIP_ROWS, 2 * ST.LANE)
+    lib_fn, idx = PS.index_select_call(torch, ST, img, oyq, obx, fidx)
+    lib = lib_fn()
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want)) and bool(torch.equal(lib, want))
-    # bytes: each image byte a strip covers, read once; the strips
-    # written; the indices read
-    covered = int(torch.unique(idx).numel()) * ST.LANE * img.element_size()
-    n_bytes = covered + got.numel() * got.element_size() + 4 * (2 * B * N + B)
+    n_bytes = PS.strips_bytes(torch, ST, img, idx, B, N)
     bound_ms, bound_by = bound(n_bytes, 0)
     out = dict(
-        T=T, Hp=Hp, Wp=Wp, B=B, N=N, dtype=dtype, random_fidx=random_fidx,
-        bit_equal=equal, max_abs_err=float((got.float() - want.float()).abs().max()),
-        ms=cuda_ms(lambda: ST.gather_strips(img, oyq, obx, fidx), torch, flush, 20),
-        plain_ms=cuda_ms(lambda: ST.gather_strips_ref(img, oyq, obx, fidx), torch, flush, 20),
-        library_ms=cuda_ms(lambda: torch.index_select(src, 0, idx), torch, flush, 20),
+        T=T, Hp=Hp, Wp=Wp, B=B, N=N, dtype=dtype, random_fidx=random_fidx, edge=edge,
+        seed=seed, bit_equal=equal,
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=PS.event_ms(torch, kern, flush, 20),
+        plain_ms=PS.event_ms(torch, lambda: ST.gather_strips_ref(img, oyq, obx, fidx), flush,
+                             20),
+        library_ms=PS.event_ms(torch, lib_fn, flush, 20),
         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+        back_to_back_ms=PS.back_to_back(torch, kern)[0],
+        library_back_to_back_ms=PS.back_to_back(torch, lib_fn)[0],
     )
+    parent_txt = ""
+    if parent is not None:
+        pfn = PS.parent_call(torch, parent, img, oyq, obx, fidx)
+        check(bool(torch.equal(pfn(), want)), f"the parent K3 differs from plain at {shape}")
+        out["parent_ms"] = PS.event_ms(torch, pfn, flush, 20)
+        parent_txt = f", parent kernel {out['parent_ms']:.4f} ms"
     print(f"# gather_strips T={T} Hp={Hp} Wp={Wp} B={B} N={N} {dtype} "
-          f"fidx={'random' if random_fidx else 'arange'}: bit-equal {equal}, kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, index_select "
-          f"{out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB)",
-          flush=True)
-    check(equal, f"gather_strips differs from its plain version at {shape}")
+          f"fidx={'random' if random_fidx else 'arange'}{' edge' if edge else ''}: bit-equal "
+          f"{equal}, kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, index_select "
+          f"{out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB), "
+          f"share {bound_ms / out['ms']:.3f}; back to back (host included) kernel "
+          f"{out['back_to_back_ms']:.4f} ms, index_select "
+          f"{out['library_back_to_back_ms']:.4f} ms{parent_txt}", flush=True)
+    check(equal, f"gather_strips differs from its plain version at {shape}"
+                 f"{' (edge)' if edge else ''}")
     return out
 
 
-def compare_convert(np, torch, CV, shape, dev, seed, flush):
+def profile_strips_rows(torch, ST, PS, dev, rows, parent, card) -> None:
+    """Phase 23: the profiler's kernel duration of K3 (and of index_select
+    and the parent K3, where given) at the inputs of every compared row,
+    remade from its seed; added to the rows. Last, because a profiler
+    session may leave tracing hooks that slow the host's later launches."""
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    for r in rows:
+        shape = (r["T"], r["Hp"], r["Wp"], r["B"], r["N"], r["dtype"])
+        inputs = PS.strip_inputs(torch, ST, shape, dev, r["seed"], r["random_fidx"], r["edge"])
+        r["profiler_ms"] = PS.profiler_ms(torch, lambda: ST.gather_strips(*inputs), flush)
+        r["library_profiler_ms"] = PS.profiler_ms(
+            torch, PS.index_select_call(torch, ST, *inputs)[0], flush)
+        if parent is not None:
+            r["parent_profiler_ms"] = PS.profiler_ms(
+                torch, PS.parent_call(torch, parent, *inputs), flush)
+        prof = r["profiler_ms"]
+        print(f"# gather_strips {shape}{' edge' if r['edge'] else ''}: kernel event "
+              f"{r['ms']:.4f} ms, profiler {PS.fmt_ms(prof)} ms (bound {r['bound_ms']:.4f}, "
+              f"share {r['bound_ms'] / r['ms']:.3f} by event"
+              + (f", {r['bound_ms'] / prof:.3f} by profiler" if prof else "")
+              + f"); index_select profiler {PS.fmt_ms(r['library_profiler_ms'])} ms"
+              + (f"; parent event {r['parent_ms']:.4f} ms, profiler "
+                 f"{PS.fmt_ms(r['parent_profiler_ms'])} ms" if parent is not None else "")
+              + f" ({card})", flush=True)
+    del flush
+
+
+def compare_convert(np, torch, CV, PS, shape, dev, seed, flush):
     """E5/E6 vs plain version at one launch shape; the plain version is
     the library call `.to(torch.bfloat16)` itself."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -458,11 +486,11 @@ def compare_convert(np, torch, CV, shape, dev, seed, flush):
     equal = bool(torch.equal(got, want))
     n_bytes = 3 * x.numel()  # u8 read, bf16 written
     bound_ms, bound_by = bound(n_bytes, x.numel())
-    plain_ms = cuda_ms(lambda: CV.u8_to_bf16_ref(x), torch, flush)
+    plain_ms = PS.event_ms(torch, lambda: CV.u8_to_bf16_ref(x), flush, 5)
     out = dict(
         shape=list(shape), bit_equal=equal,
         max_abs_err=float((got.float() - want.float()).abs().max()),
-        ms=cuda_ms(lambda: CV.u8_to_bf16(x), torch, flush), plain_ms=plain_ms,
+        ms=PS.event_ms(torch, lambda: CV.u8_to_bf16(x), flush, 5), plain_ms=plain_ms,
         library_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
     )
     print(f"# u8_to_bf16 {tuple(shape)}: bit-equal {equal}, kernel {out['ms']:.4f} ms, "
@@ -472,7 +500,7 @@ def compare_convert(np, torch, CV, shape, dev, seed, flush):
     return out
 
 
-def compare_copy(np, torch, BC, shape, dev, seed, flush, chunk):
+def compare_copy(np, torch, BC, PS, shape, dev, seed, flush, chunk):
     """E7 vs plain version at one (T, Hp, Wp, n, dtype) launch shape: every
     chunk start of the path bit-equal; times at the middle start, with
     `index_select` and a host-start `narrow(...).clone()` beside them."""
@@ -496,10 +524,11 @@ def compare_copy(np, torch, BC, shape, dev, seed, flush, chunk):
     out = dict(
         T=T, Hp=Hp, Wp=Wp, n=n, dtype=dtype, starts=len(starts), bit_equal=equal,
         max_abs_err=max(errs),
-        ms=cuda_ms(lambda: BC.copy_block(frames, st, n), torch, flush, 20),
-        plain_ms=cuda_ms(lambda: BC.copy_block_ref(frames, st, n), torch, flush, 20),
-        library_ms=cuda_ms(lambda: torch.index_select(frames, 0, idx), torch, flush, 20),
-        narrow_clone_ms=cuda_ms(lambda: frames.narrow(0, s_host, n).clone(), torch, flush, 20),
+        ms=PS.event_ms(torch, lambda: BC.copy_block(frames, st, n), flush, 20),
+        plain_ms=PS.event_ms(torch, lambda: BC.copy_block_ref(frames, st, n), flush, 20),
+        library_ms=PS.event_ms(torch, lambda: torch.index_select(frames, 0, idx), flush, 20),
+        narrow_clone_ms=PS.event_ms(torch, lambda: frames.narrow(0, s_host, n).clone(), flush,
+                                    20),
         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
     )
     print(f"# copy_block T={T} {Hp}x{Wp} n={n}: {len(starts)} starts bit-equal {equal}, kernel "
@@ -510,7 +539,7 @@ def compare_copy(np, torch, BC, shape, dev, seed, flush, chunk):
     return out
 
 
-def compare_i16(np, torch, S, shape, dev, seed, flush):
+def compare_i16(np, torch, S, PS, shape, dev, seed, flush):
     """E8 vs its plain version and vs K2's kernel at one (B, F, N, I)
     shape; K2 and E8 timed in turns (K2, E8, E8, K2)."""
     B, F, N, I = shape
@@ -530,13 +559,13 @@ def compare_i16(np, torch, S, shape, dev, seed, flush):
     def k2_call():
         S.score_quartile_batched(nP, v, counts)
 
-    k2_a, e8_a = cuda_ms(k2_call, torch, flush), cuda_ms(e8, torch, flush)
-    e8_b, k2_b = cuda_ms(e8, torch, flush), cuda_ms(k2_call, torch, flush)
+    k2_a, e8_a = PS.event_ms(torch, k2_call, flush, 5), PS.event_ms(torch, e8, flush, 5)
+    e8_b, k2_b = PS.event_ms(torch, e8, flush, 5), PS.event_ms(torch, k2_call, flush, 5)
     out = dict(
         B=B, F=F, N=N, I=I, bit_equal=equal, bit_equal_k2=equal_k2,
         max_abs_err=float((got - want).abs().max()),
         ms=(e8_a + e8_b) / 2, k2_ms=(k2_a + k2_b) / 2,
-        plain_ms=cuda_ms(lambda: S.score_quartile_i16_ref(nP, v, counts), torch, flush),
+        plain_ms=PS.event_ms(torch, lambda: S.score_quartile_i16_ref(nP, v, counts), flush, 5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         **score_kernel_attrs(N, True),
     )
@@ -549,7 +578,7 @@ def compare_i16(np, torch, S, shape, dev, seed, flush):
     return out
 
 
-def compare_patches(np, torch, PT, shape, dev, seed, flush):
+def compare_patches(np, torch, PT, PS, shape, dev, seed, flush):
     """extract_patches vs its plain version at one (H, W, N, size,
     dtype, patches_per_block) launch shape, origins in bounds from a
     numpy seed with the image's four corners first; the advanced-index
@@ -591,12 +620,12 @@ def compare_patches(np, torch, PT, shape, dev, seed, flush):
     out = dict(
         H=H, W=W, N=N, size=size, dtype=dtype, patches_per_block=ppb, bit_equal=equal,
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(kernel, torch, flush, 20),
-        plain_ms=cuda_ms(lambda: PT.extract_patches_ref(img, o, size), torch, flush, 20),
-        library_ms=cuda_ms(lambda: img[ri, ci], torch, flush, 20),
-        floor_ms=cuda_ms(floor, torch, flush, 20),
-        back_to_back_ms=back_to_back_ms(kernel, torch),
-        floor_back_to_back_ms=back_to_back_ms(floor, torch),
+        ms=PS.event_ms(torch, kernel, flush, 20),
+        plain_ms=PS.event_ms(torch, lambda: PT.extract_patches_ref(img, o, size), flush, 20),
+        library_ms=PS.event_ms(torch, lambda: img[ri, ci], flush, 20),
+        floor_ms=PS.event_ms(torch, floor, flush, 20),
+        back_to_back_ms=PS.back_to_back(torch, kernel)[0],
+        floor_back_to_back_ms=PS.back_to_back(torch, floor)[0],
         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
         **patch_kernel_attrs(img.element_size(), size, ppb),
     )
@@ -915,7 +944,8 @@ def guess_multi_phase(np, torch, card, clip, recipe, cache, S, ST, RC, GO, make_
     return [(recipe1, clip), (recipe2, clip2)]
 
 
-def compare_new_shapes(np, torch, S, ST, dev, seen, covered, seed0, label) -> dict:
+def compare_new_shapes(np, torch, S, ST, PS, dev, seen, covered, seed0, label,
+                       parent) -> dict:
     """K1/K2/K3 against their plain versions at every launch shape in
     `seen` that `covered` lacks (then added to it); each row's `path`
     names the runs that launched its shape. Returns {kernel: rows}."""
@@ -927,9 +957,10 @@ def compare_new_shapes(np, torch, S, ST, dev, seen, covered, seed0, label) -> di
               f"{len(new)} not compared before: {new}", flush=True)
         for i, sh in enumerate(new):
             if name == "gather_strips":  # frame indices matter where T != B
-                row = compare_strips(np, torch, ST, sh, dev, seed0 + i, sh[0] != sh[3], flush)
+                row = compare_strips(np, torch, ST, PS, sh, dev, seed0 + i, sh[0] != sh[3],
+                                     flush, parent)
             else:
-                row = compare_score(np, torch, S, name, sh, dev, seed0 + i, flush)
+                row = compare_score(np, torch, S, PS, name, sh, dev, seed0 + i, flush)
             row["path"] = sorted(set(seen[name][sh]))
             rows[name].append(row)
         covered[name] |= set(new)
@@ -1200,6 +1231,11 @@ def hybrid_phase(np, torch, dev, card, ST, TR, seen) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description="Drive the PyTorch + CUDA port on one card.")
+    ap.add_argument("--parent-csrc", metavar="DIR",
+                    help="a csrc/ directory holding an earlier gather_strips.cu with the "
+                         "first K3 kernel's C interface: its K3 is timed beside the kernel")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError as e:
@@ -1237,6 +1273,7 @@ def main() -> None:
         from rssync_tpu_torch.ops import patches as PT
         from rssync_tpu_torch.ops import score as S
         from rssync_tpu_torch.ops import strips as ST
+        from rssync_tpu_torch.testing import profile_strips as PS
         from rssync_tpu_torch.ops.spline import eval_spline_packed
         from rssync_tpu_torch.pipeline.recipe import (
             SYNC_PASSES,
@@ -1292,6 +1329,11 @@ def main() -> None:
     _kernels.load()
     print(f"# kernel build+load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc, one process per source, {_kernels.build_seconds:.2f} s)", flush=True)
+    parent = None
+    if args.parent_csrc:  # an earlier K3, timed beside the kernel wherever K3 is compared
+        parent = PS.build_parent(Path(args.parent_csrc) / "gather_strips.cu")
+        print(f"# parent K3 from {args.parent_csrc} built: {time.perf_counter() - t0:.2f} s",
+              flush=True)
     make_log = make.communicate(timeout=300)[0]
     check(make.returncode == 0, f"make -C native/gpmf failed:\n{make_log}")
     print(f"# native telemetry parser built: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1347,7 +1389,7 @@ def main() -> None:
     t0 = time.perf_counter()
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     compared = {
-        name: [compare_score(np, torch, S, name, shape, dev, seed, flush)
+        name: [compare_score(np, torch, S, PS, name, shape, dev, seed, flush)
                for seed, shape in enumerate(shapes[name])]
         for name in shapes
     }
@@ -1603,10 +1645,13 @@ def main() -> None:
     # -- phase 10: K3 against its plain version ------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-    strip_rows = [compare_strips(np, torch, ST, shape, dev, seed, False, flush)
+    strip_rows = [compare_strips(np, torch, ST, PS, shape, dev, seed, False, flush, parent)
                   for seed, shape in enumerate(k3_shapes)]
-    strip_rows.append(compare_strips(np, torch, ST, (9, 96, 384, 5, 17, "torch.float32"), dev,
-                                     99, True, flush))
+    # edge shapes: (shape, seed, random frame indices, every strip at the
+    # last valid row and block)
+    for shape, seed, random_fidx, edge in STRIP_EDGES:
+        strip_rows.append(compare_strips(np, torch, ST, PS, shape, dev, seed, random_fidx,
+                                         flush, parent, edge))
     phase("10 (K3 vs plain)", t0)
 
     # -- phase 11: the probe paths, each with its kernel's counters zeroed
@@ -1651,14 +1696,14 @@ def main() -> None:
 
     # -- phase 12: E5-E8 against their plain versions ----------------------
     t0 = time.perf_counter()
-    e5_rows = [compare_convert(np, torch, CV, sh, dev, 20 + i, flush)
+    e5_rows = [compare_convert(np, torch, CV, PS, sh, dev, 20 + i, flush)
                for i, sh in enumerate(probe_paths["e5"][1])]
-    e6_rows = [compare_convert(np, torch, CV, sh, dev, 30 + i, flush)
+    e6_rows = [compare_convert(np, torch, CV, PS, sh, dev, 30 + i, flush)
                for i, sh in enumerate(probe_paths["e6"][1])]
-    e7_rows = [compare_copy(np, torch, BC, sh, dev, 40 + i, flush, FULL.chunk)
+    e7_rows = [compare_copy(np, torch, BC, PS, sh, dev, 40 + i, flush, FULL.chunk)
                for i, sh in enumerate(probe_paths["e7"][1])]
     sync_shape = (30, 60, 130, 200)  # batched Sync's K2 launch, E8 on no path there
-    e8_rows = [compare_i16(np, torch, S, sh, dev, 50 + i, flush)
+    e8_rows = [compare_i16(np, torch, S, PS, sh, dev, 50 + i, flush)
                for i, sh in enumerate(e8_shapes + [sync_shape] * (sync_shape not in e8_shapes))]
     phase("12 (E5-E8 vs plain)", t0)
 
@@ -1726,15 +1771,16 @@ def main() -> None:
     # the shapes the patch paths launched them at ----------------------------
     t0 = time.perf_counter()
     patch_shapes = sorted(set().union(*(set(v[1]) for v in patch_paths.values())))
-    patch_rows = {sh: compare_patches(np, torch, PT, sh, dev, 60 + i, flush)
+    patch_rows = {sh: compare_patches(np, torch, PT, PS, sh, dev, 60 + i, flush)
                   for i, sh in enumerate(patch_shapes)}
-    odd_row = compare_patches(np, torch, PT, (37, 131, 9, 7, "torch.bfloat16", 3), dev, 69, flush)
+    odd_row = compare_patches(np, torch, PT, PS, (37, 131, 9, 7, "torch.bfloat16", 3), dev, 69,
+                             flush)
     instances = {(isz, size, depth): patch_kernel_attrs(isz, size, depth)
                  for isz in (1, 2, 4) for size in (PT.ROW_SIZE, 7) for depth in (1, 2, 4, 8)}
     print(f"# extract_patches instances (itemsize, size, depth): registers, local bytes a "
           f"thread {[(k, v['regs'], v['local_bytes']) for k, v in instances.items()]}",
           flush=True)
-    e2_rows = [compare_strips(np, torch, ST, sh, dev, 70 + i, False, flush)
+    e2_rows = [compare_strips(np, torch, ST, PS, sh, dev, 70 + i, False, flush, parent)
                for i, sh in enumerate(e2_shapes)]
     phase("14 (patch kernels vs plain)", t0)
 
@@ -1824,8 +1870,8 @@ def main() -> None:
     covered = {"score_quartile": set(shapes["score_quartile"]),
                "score_quartile_batched": set(shapes["score_quartile_batched"]),
                "gather_strips": set(k3_shapes) | set(e2_shapes)}
-    recipe_rows = compare_new_shapes(np, torch, S, ST, dev, seen, covered, 200,
-                                     "phases 16-17")
+    recipe_rows = compare_new_shapes(np, torch, S, ST, PS, dev, seen, covered, 200,
+                                     "phases 16-17", parent)
     phase("18 (K1/K2/K3 vs plain at the recipe paths' shapes)", t0)
 
     # -- phase 19: the long-term drift run at full size ---------------------
@@ -1850,8 +1896,15 @@ def main() -> None:
     # -- phase 22: K1/K2/K3 against their plain versions at every shape
     # phases 19-21 launched them at that no earlier phase compared
     t0 = time.perf_counter()
-    new_rows = compare_new_shapes(np, torch, S, ST, dev, seen, covered, 300, "phases 19-21")
+    new_rows = compare_new_shapes(np, torch, S, ST, PS, dev, seen, covered, 300,
+                                  "phases 19-21", parent)
     phase("22 (K1/K2/K3 vs plain at the shapes of phases 19-21)", t0)
+
+    # -- phase 23: K3's profiler durations at every shape compared ---------
+    t0 = time.perf_counter()
+    profile_strips_rows(torch, ST, PS, dev, strip_rows + e2_rows + recipe_rows["gather_strips"]
+                        + new_rows["gather_strips"], parent, card)
+    phase("23 (K3 profiler durations)", t0)
 
     csrc = "rssync_tpu_torch/csrc/"
     h = "rssync_tpu_torch.experiments."

@@ -124,7 +124,7 @@ def load() -> ctypes.CDLL:
         lib.gather_strips_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.gather_strips_launch.restype = ctypes.c_int
         lib.gather_strips_error_string.argtypes = [ctypes.c_int]

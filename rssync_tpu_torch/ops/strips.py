@@ -12,11 +12,15 @@ and column 128 * obx is 2 consecutive blocks of each of S rows.
   (pair, point), with indices the caller has clamped in bounds. On CPU
   tensors it computes the plain version `gather_strips_ref`; on CUDA
   tensors it launches the kernel of csrc/gather_strips.cu or raises.
+  The kernel streams the strips through a shared-memory ring of a
+  persistent grid with TMA copies.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rssync_tpu_torch.ops import _kernels
 
 LANE = 128
 #: rows of a search strip: the largest fine-level window (S = 31) plus
@@ -27,6 +31,8 @@ STRIP_ROWS = 40
 LAUNCHES = {"gather_strips": 0}
 #: the (T, Hp, Wp, B, N, dtype) shapes the kernel was launched at
 LAUNCH_SHAPES = {"gather_strips": set()}
+
+_DTYPE_NAMES = {torch.uint8: "torch.uint8", torch.float32: "torch.float32"}
 
 
 def reset_launch_counters() -> None:
@@ -105,43 +111,48 @@ def _check(imgs, oyq, obx, fidx) -> None:
         raise ValueError(f"gather_strips: fidx {tuple(fidx.shape)} must be ({oyq.shape[0]},)")
     if fidx is None and oyq.shape[0] != T:
         raise ValueError(f"gather_strips: {oyq.shape[0]} pairs need fidx for {T} frames")
-    devices = {t.device for t in (imgs, oyq, obx, fidx) if t is not None}
-    if len(devices) != 1:
+    dev = imgs.device
+    if oyq.device != dev or obx.device != dev or (fidx is not None and fidx.device != dev):
+        devices = {t.device for t in (imgs, oyq, obx, fidx) if t is not None}
         raise ValueError(f"gather_strips: tensors on several devices {devices}")
 
 
 def _launch(imgs, oyq, obx, fidx) -> torch.Tensor:
-    from rssync_tpu_torch.ops import _kernels
-
+    """Launch the kernel (fidx may be None: pair b reads frame b). The
+    checks of `_check` come first."""
     dev = imgs.device
     if dev.type != "cuda":
         raise ValueError(f"gather_strips: unsupported device {dev}")
     for name, t in (("oyq", oyq), ("obx", obx), ("fidx", fidx)):
-        if t.dtype != torch.int32:
+        if t is not None and t.dtype != torch.int32:
             raise TypeError(f"gather_strips: {name} must be int32, got {t.dtype}")
-    if not all(t.is_contiguous() for t in (imgs, oyq, obx, fidx)):
+    if not (imgs.is_contiguous() and oyq.is_contiguous() and obx.is_contiguous()
+            and (fidx is None or fidx.is_contiguous())):
         raise ValueError("gather_strips: inputs must be contiguous")
     if imgs.data_ptr() % 16:
         raise ValueError("gather_strips: image rows must be 16-byte aligned")
     T, Hp, Wp = imgs.shape
     B, N = oyq.shape
-    if B * N >= 2**31:
-        raise ValueError(f"gather_strips: {B * N} strips exceed the grid limit")
+    if B * N >= 2**31 or T * Hp >= 2**31:
+        raise ValueError(f"gather_strips: {B * N} strips or {T * Hp} image rows exceed the "
+                         "kernel's 32-bit indices")
     out = torch.empty((B, N, STRIP_ROWS, 2 * LANE), dtype=imgs.dtype, device=dev)
     if B * N == 0:
         return out
     lib = _kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gather_strips_launch(
-            imgs.data_ptr(), oyq.data_ptr(), obx.data_ptr(), fidx.data_ptr(),
-            out.data_ptr(), B, N, T, Hp, Wp, imgs.element_size(), stream,
-        )
+    index = dev.index
+    # the C launch makes `index` the current device for the launch; the raw
+    # stream handle skips building a torch Stream a call
+    rc = lib.gather_strips_launch(
+        imgs.data_ptr(), oyq.data_ptr(), obx.data_ptr(),
+        None if fidx is None else fidx.data_ptr(), out.data_ptr(), B, N, T, Hp, Wp,
+        imgs.element_size(), index, torch._C._cuda_getCurrentRawStream(index),
+    )
     if rc != 0:
         raise RuntimeError(
             f"gather_strips launch failed: {lib.gather_strips_error_string(rc).decode()}")
     LAUNCHES["gather_strips"] += 1
-    LAUNCH_SHAPES["gather_strips"].add((T, Hp, Wp, B, N, str(imgs.dtype)))
+    LAUNCH_SHAPES["gather_strips"].add((T, Hp, Wp, B, N, _DTYPE_NAMES[imgs.dtype]))
     return out
 
 
@@ -156,6 +167,4 @@ def gather_strips(imgs: torch.Tensor, oyq: torch.Tensor, obx: torch.Tensor,
     _check(imgs, oyq, obx, fidx)
     if imgs.device.type == "cpu":
         return gather_strips_ref(imgs, oyq, obx, fidx)
-    if fidx is None:
-        fidx = torch.arange(oyq.shape[0], dtype=torch.int32, device=imgs.device)
     return _launch(imgs, oyq, obx, fidx)

@@ -1,7 +1,9 @@
 """The port's public math helpers held to rssync_tpu's on the CPU, and
 its surface: every public top-level name of rssync_tpu has a
 counterpart in rssync_tpu_torch or stands in DELIBERATE_OMISSIONS with
-its reason.
+its reason, and every parameter of every public function, class and
+method of rssync_tpu is a parameter of its counterpart or stands in
+RENAMED_PARAMS / DELIBERATE_PARAM_OMISSIONS with its reason.
 
 - `ops/quat.py::squad`, `quad` against rssync_tpu's (atol 1e-6) and
   their endpoint properties (tests/test_quat.py:119-137);
@@ -17,6 +19,7 @@ its reason.
 
 import ast
 import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -74,6 +77,103 @@ RENAMED = {
     ("ops/pallas_score.py", "score_quartile_xla"): ("ops/score.py", "score_quartile_ref"),
     ("ops/pallas_score.py", "BISECT_ROUNDS"): ("ops/score.py", "BISECT_ROUNDS"),
     ("ops/pallas_score.py", "MARKOV_C"): ("ops/score.py", "MARKOV_C"),
+}
+
+
+#: why a JAX parameter has another name or no counterpart in the port
+_KEY = "a JAX PRNG key; the port draws from a torch.Generator"
+_AXIS = "PyTorch names the axis `dim`"
+_PALLAS = "a Pallas launch option (interpret mode, TPU tile); the CUDA kernel takes none"
+_IMPL = ("the scoring route (Pallas or XLA) on the TPU; the port's wrapper launches the "
+         "kernel on the card and its plain version on the CPU")
+_WIDE = "wide bands (see WIDE): the port's single coefficient gather reads any knot"
+_DTYPE = ("a float64 engine: rssync_tpu cannot run one (under jax.enable_x64, "
+          "create_sync_problem(dtype=jnp.float64) then pre_sync raises TypeError: "
+          "lax.concatenate int64 vs int32 at rssync_tpu/core/problem.py:353; without x64 "
+          "the request gives float32), so the port's float32 engine computes all it can")
+_RENDERED = ("make_clip renders the clip on the device and writes no files; "
+             "testing/synthvideo.py::write_clip_files(clip, dir) writes them")
+
+#: (rssync_tpu module, qualified name, parameter) -> (the port's parameter, why)
+RENAMED_PARAMS = {
+    ("core/ransac.py", "sample_pairs", "key"): ("generator", _KEY),
+    ("core/ransac.py", "sample_pairs", "count"):
+        ("counts", "valid rows as a tensor, scalar or batched"),
+    ("core/ransac.py", "guess_motion", "key"): ("generator", _KEY),
+    ("core/ransac.py", "guess_motion_window", "key"): ("generator", _KEY),
+    ("core/ransac.py", "guess_motion_window_batched", "keys"):
+        ("generator", "a JAX key a window; the port draws every window's pairs from one "
+                      "torch.Generator"),
+    ("core/presync.py", "window_cost", "key"): ("generator", _KEY),
+    ("core/presync.py", "presync_scan", "key"): ("generator", _KEY),
+    ("core/sync.py", "init_motion", "key"): ("generator", _KEY),
+    ("core/sync.py", "sync_window", "key"): ("generator", _KEY),
+    ("parallel/batch.py", "batched_presync", "key"): ("generator", _KEY),
+    ("parallel/batch.py", "batched_sync", "key"): ("generator", _KEY),
+    ("parallel/batch.py", "batched_sync_pipeline", "key"): ("generator", _KEY),
+    ("parallel/multi.py", "sync_clips", "key"): ("generator", _KEY),
+    ("ops/robust.py", "safe_normalize", "axis"): ("dim", _AXIS),
+    ("ops/robust.py", "safe_norm", "axis"): ("dim", _AXIS),
+    ("frontend/tracking.py", "emit_track_result", "pts_j"):
+        ("pts_t", "the points on the device: a torch tensor where rssync_tpu has a jax array"),
+}
+
+#: (rssync_tpu module, qualified name, parameter) -> why the port takes no
+#: such parameter
+DELIBERATE_PARAM_OMISSIONS = {
+    ("ops/pallas_score.py", "score_quartile_pallas", "interpret"): _PALLAS,
+    ("ops/pallas_score.py", "score_quartile_pallas", "f_tile"): _PALLAS,
+    ("ops/pallas_score.py", "score_quartile_pallas_batched", "interpret"): _PALLAS,
+    ("ops/pallas_score.py", "score_quartile_pallas_batched", "b_tile"): _PALLAS,
+    ("core/ransac.py", "guess_motion_window", "impl"): _IMPL,
+    ("core/ransac.py", "guess_motion_window_batched", "impl"): _IMPL,
+    ("core/ransac.py", "guess_motion_rows", "impl"): _IMPL,
+    ("frontend/tracking.py", "track_frames", "warm_gate"):
+        "an event set once XLA's tracker compiles finish; nothing compiles in the port",
+    ("core/presync.py", "window_cost", "bands"): _WIDE,
+    ("core/presync.py", "presync_scan", "wide"): _WIDE,
+    ("core/problem.py", "compute_problem", "bands"): _WIDE,
+    ("core/problem.py", "SplineTable", "coeffs_padded"): _WIDE,
+    ("core/problem.py", "TrackWindow", "band"): _WIDE,
+    ("core/problem.py", "TrackWindow", "base_a"): _WIDE,
+    ("core/problem.py", "TrackWindow", "base_b"): _WIDE,
+    ("core/sync.py", "window_loss", "bands"): _WIDE,
+    ("core/sync.py", "init_motion", "bands"): _WIDE,
+    ("core/sync.py", "sync_window", "wide"): _WIDE,
+    ("parallel/batch.py", "batched_presync", "wide"): _WIDE,
+    ("parallel/batch.py", "batched_sync", "wide"): _WIDE,
+    ("parallel/batch.py", "batched_sync_pipeline", "wide"): _WIDE,
+    ("core/sync.py", "sync_window", "delay_grad"):
+        "jax.jvp or finite differences for the delay gradient; the port's L-BFGS Sync "
+        "differentiates the per-frame loss analytically",
+    ("core/api.py", "SyncProblem", "dtype"): _DTYPE,
+    ("core/api.py", "create_sync_problem", "dtype"): _DTYPE,
+    ("core/problem.py", "make_spline_table", "dtype"): _DTYPE,
+    ("core/problem.py", "make_spline_tables_batched", "dtype"): _DTYPE,
+    ("core/problem.py", "build_track_window", "dtype"): _DTYPE,
+    ("frontend/tracking.py", "FrameFeed", "n_workers"):
+        "the port keeps FrameFeed's single reader (its frontend/tracking.py FrameFeed "
+        "docstring); parallel decode is the DecodePool's",
+    ("frontend/tracking.py", "FrameFeed", "ahead"):
+        "the single reader's depth is its AHEAD class constant, rssync_tpu's default",
+    ("frontend/tracking.py", "FrameFeed", "raw_luma"):
+        "the single reader always yields raw luma, rssync_tpu's default",
+    ("testing/synthvideo.py", "make_clip", "out_dir"): _RENDERED,
+    ("testing/synthvideo.py", "SyntheticClip", "video_path"): _RENDERED,
+    ("testing/synthvideo.py", "SyntheticClip", "gyro_path"): _RENDERED,
+    ("testing/synthvideo.py", "SyntheticClip", "lens_path"): _RENDERED,
+    ("testing/synthvideo.py", "SyntheticClip", "lens_name"): _RENDERED,
+    ("testing/engine_problem.py", "EngineProblem", "table"):
+        "EngineProblem(quats, tracks): the problem holds its inputs and `.feed(sp)` builds "
+        "the table and windows through the SyncProblem intake",
+    ("testing/engine_problem.py", "EngineProblem", "windows"):
+        "EngineProblem(quats, tracks): see `table`",
+}
+
+#: (rssync_tpu module, qualified method) -> the port's method, and why
+RENAMED_METHODS = {
+    ("core/api.py", "SyncProblem.next_key"):
+        ("SyncProblem.next_generator", "a JAX PRNG key; the port hands out torch.Generators"),
 }
 
 
@@ -158,6 +258,123 @@ def test_surface_walk_reads_definitions_and_reexports():
     mesh = _public_names(ROOT / "rssync_tpu" / "parallel" / "mesh.py")
     assert mesh == {"WINDOW_AXIS", "make_mesh", "pad_to_multiple", "shard_windows",
                     "replicate_table", "shard_vector"}
+
+
+def _params(fn: ast.FunctionDef | ast.AsyncFunctionDef) -> list[str]:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _fields(cls: ast.ClassDef) -> list[str] | None:
+    """A dataclass's or NamedTuple's fields, in order; None for any other
+    class."""
+    if not any("dataclass" in ast.unparse(d) for d in cls.decorator_list) and \
+            not any("NamedTuple" in ast.unparse(b) for b in cls.bases):
+        return None
+    return [n.target.id for n in cls.body if isinstance(n, ast.AnnAssign)
+            and isinstance(n.target, ast.Name) and "ClassVar" not in ast.unparse(n.annotation)]
+
+
+def _signatures(path: Path):
+    """(qualified name, parameters) of a module's public functions, of its
+    public classes (their constructor: __init__ or the fields) and of
+    their public methods (properties take none), read with ast."""
+    for node in ast.parse(path.read_text()).body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield node.name, _params(node)
+        elif isinstance(node, ast.ClassDef):
+            methods = [n for n in node.body
+                       if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+            init = next((m for m in methods if m.name == "__init__"), None)
+            ctor = _params(init) if init is not None else _fields(node)
+            if ctor is not None:
+                yield node.name, ctor
+            for m in methods:
+                if not m.name.startswith("_") and not any(
+                        "property" in ast.unparse(d) or "setter" in ast.unparse(d)
+                        for d in m.decorator_list):
+                    yield f"{node.name}.{m.name}", _params(m)
+
+
+def _port_callable(rel: str, qualname: str):
+    """The port's counterpart of rssync_tpu's `rel::qualname`."""
+    head, _, method = qualname.partition(".")
+    port_rel, port_head = RENAMED.get((rel, head), (rel, head))
+    if method:
+        port_head = RENAMED_METHODS.get((rel, qualname), (f"{port_head}.{method}",))[0]
+    obj = _port_module(port_rel)
+    for part in port_head.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _param_gaps(rel: str, qualname: str, params: list[str], port) -> list[str]:
+    """The parameters of rssync_tpu's `rel::qualname` that its port
+    counterpart neither takes (under its own or its renamed name) nor
+    lists as omitted."""
+    taken = set(inspect.signature(port).parameters)
+    gaps = []
+    for p in params:
+        if (rel, qualname, p) in DELIBERATE_PARAM_OMISSIONS:
+            continue
+        if RENAMED_PARAMS.get((rel, qualname, p), (p,))[0] not in taken:
+            gaps.append(f"{rel}::{qualname}({p})")
+    return gaps
+
+
+def _param_surface():
+    for path in sorted((ROOT / "rssync_tpu").rglob("*.py")):
+        rel = path.relative_to(ROOT / "rssync_tpu").as_posix()
+        if (rel, "*") in DELIBERATE_OMISSIONS:
+            continue
+        for qualname, params in _signatures(path):
+            if (rel, qualname.partition(".")[0]) not in DELIBERATE_OMISSIONS:
+                yield rel, qualname, params
+
+
+def test_every_public_parameter_is_taken_or_deliberately_omitted():
+    gaps, known = [], {}
+    for rel, qualname, params in _param_surface():
+        known[(rel, qualname)] = params
+        gaps += _param_gaps(rel, qualname, params, _port_callable(rel, qualname))
+    assert not gaps, f"parameters of rssync_tpu the port neither takes nor lists: {gaps}"
+    for table in (RENAMED_PARAMS, DELIBERATE_PARAM_OMISSIONS):
+        for rel, qualname, p in table:
+            assert p in known.get((rel, qualname), ()), f"{rel}::{qualname}({p}) names nothing"
+            taken = inspect.signature(_port_callable(rel, qualname)).parameters
+            if table is RENAMED_PARAMS:
+                assert RENAMED_PARAMS[(rel, qualname, p)][0] in taken, (rel, qualname, p)
+            else:
+                assert p not in taken, f"{rel}::{qualname}({p}) is taken: drop the omission"
+    for (rel, qualname), (port_name, _) in RENAMED_METHODS.items():
+        assert (rel, qualname) in known and callable(_port_callable(rel, qualname)), port_name
+    assert all(r for _, r in RENAMED_PARAMS.values())
+    assert all(DELIBERATE_PARAM_OMISSIONS.values())
+
+
+def test_param_walk_reads_signatures_and_reports_gaps(tmp_path):
+    sigs = dict(_signatures(ROOT / "rssync_tpu" / "core" / "api.py"))
+    assert "dtype" in sigs["create_sync_problem"] and "seed" in sigs["SyncProblem"]
+    assert "SyncProblem.next_key" in sigs and "SyncProblem.spline_table" not in sigs
+    fields = dict(_signatures(ROOT / "rssync_tpu" / "core" / "problem.py"))["TrackWindow"]
+    assert {"rays_a", "counts", "band", "base_a"} <= set(fields)
+    # a parameter that is neither taken nor listed is reported; a listed
+    # omission and a rename are not
+    mod = tmp_path / "fake.py"
+    mod.write_text("def create_sync_problem(seed=0, dtype=None, flavour=1):\n    pass\n"
+                   "def safe_norm(v, axis=None, eps=1e-30):\n    pass\n")
+    got = {q: p for q, p in _signatures(mod)}
+    api = _port_callable("core/api.py", "create_sync_problem")
+    assert _param_gaps("core/api.py", "create_sync_problem", got["create_sync_problem"],
+                       api) == ["core/api.py::create_sync_problem(flavour)"]
+    robust = _port_callable("ops/robust.py", "safe_norm")
+    assert _param_gaps("ops/robust.py", "safe_norm", got["safe_norm"], robust) == []
+    assert _param_gaps("ops/robust.py", "safe_norm", ["v", "axis", "ord"], robust) == \
+        ["ops/robust.py::safe_norm(ord)"]
 
 
 # ---------------------------------------------------------------------------

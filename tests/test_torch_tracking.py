@@ -14,6 +14,7 @@ Pallas kernel runs in interpret mode. JAX is imported only inside the
 import ast
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -553,6 +554,105 @@ def test_gather_strips_kernel_matches_plain_on_card(cuda, dtype, fidx):
     torch.cuda.synchronize()
     assert S.LAUNCHES["gather_strips"] == before + 1
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+#: csrc/gather_strips.cu's persistent grid: CTAs launched for each SM
+#: (kCtasPerSm), and the strips whose indices a CTA stages at once
+#: (kThreads)
+CTAS_PER_SM, INDEX_CHUNK = 8, 128
+
+#: edge cases of the kernel's ring and grid: (T, H, W, B, N, fidx, where)
+#: - every strip at the last valid row and block;
+#: - one strip (one CTA, one stage used);
+#: - B * N = 1163, a multiple of no CTA count times stages (a ragged last run);
+#: - 160 000 strips: a CTA's run passes its 128-strip index chunk on any
+#:   card of up to 156 SMs
+STRIP_EDGES = {
+    "last_row_and_block": (4, 96, 300, 3, 17, True, "edge"),
+    "one_strip": (2, 40, 256, 1, 1, True, "random"),
+    "ragged_runs": (6, 120, 640, 1, 1163, True, "random"),
+    "index_chunks": (2, 48, 384, 160, 1000, True, "random"),
+}
+
+
+def _edge_arrays(case, dtype):
+    Tn, H, W, B, N, fidx, where = STRIP_EDGES[case]
+    rng = np.random.default_rng(sorted(STRIP_EDGES).index(case))
+    imgs = _u8(rng, Tn, H, W) if dtype == "uint8" else rng.normal(size=(Tn, H, W)).astype(np.float32)
+    Wp = -(-W // S.LANE) * S.LANE
+    imgs = np.pad(imgs, ((0, 0), (0, 0), (0, Wp - W)), mode="edge")
+    Bn = B if fidx else Tn
+    hi_y, hi_x = (H - S.STRIP_ROWS) // 8, Wp // S.LANE - 2
+    if where == "edge":
+        oyq, obx = np.full((Bn, N), hi_y), np.full((Bn, N), hi_x)
+    else:
+        oyq, obx = rng.integers(0, hi_y + 1, (Bn, N)), rng.integers(0, hi_x + 1, (Bn, N))
+    f = rng.integers(0, Tn, B) if fidx else np.arange(Tn)
+    return imgs, oyq.astype(np.int32), obx.astype(np.int32), f.astype(np.int32)
+
+
+def _edge_inputs(case, dtype, dev):
+    return [torch.as_tensor(x, device=dev) for x in _edge_arrays(case, dtype)]
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("case", ["last_row_and_block", "one_strip", "ragged_runs"])
+def test_gather_strips_edge_shapes_match_pallas(ref, dtype, case):
+    """The plain version, which the kernel is held to on the card, equals
+    rssync_tpu's strip kernel (interpret mode) at the edge shapes small
+    enough to interpret."""
+    imgs, oyq, obx, f = _edge_arrays(case, dtype)
+    jnp = ref.jnp
+    want = np.asarray(ref.tracking._gather_strips_pallas(
+        jnp.asarray(imgs), jnp.asarray(oyq), jnp.asarray(obx), interpret=True,
+        fidx=jnp.asarray(f)))
+    got = S.gather_strips(*(torch.as_tensor(x) for x in (imgs, oyq, obx, f)))
+    assert got.dtype == torch.as_tensor(imgs).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("case", sorted(STRIP_EDGES))
+def test_gather_strips_kernel_edge_shapes_on_card(cuda, dtype, case):
+    """Bit-equal at the ring's and the grid's edges; index_chunks gives
+    every CTA more strips than it stages indices for at once."""
+    imgs, oyq, obx, f = _edge_inputs(case, dtype, cuda)
+    if case == "index_chunks":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert oyq.numel() > INDEX_CHUNK * CTAS_PER_SM * sms
+    want = S.gather_strips_ref(imgs, oyq, obx, f)
+    assert torch.equal(S.gather_strips(imgs, oyq, obx, f), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_gather_strips_failed_encode_or_launch_raises(cuda, monkeypatch):
+    """A tensor map that cannot be encoded (a misaligned image) and
+    arguments the kernel does not take come back as errors, and the
+    wrapper raises: no path falls back to the plain version on the card."""
+    from rssync_tpu_torch.ops import _kernels
+
+    imgs, oyq, obx, f = _edge_inputs("ragged_runs", "uint8", cuda)
+    out = torch.empty((1, 1163, S.STRIP_ROWS, 2 * S.LANE), dtype=torch.uint8, device=cuda)
+    lib = _kernels.load()
+    T, Hp, Wp = imgs.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (oyq, obx, f)]
+    dev = cuda.index or 0
+    rc = lib.gather_strips_launch(imgs.data_ptr() + 1, *ptrs, out.data_ptr(), 1, 1163, T, Hp,
+                                  Wp, 1, dev, stream)
+    assert rc < 0 and b"cuTensorMapEncodeTiled failed" in lib.gather_strips_error_string(rc)
+    rc = lib.gather_strips_launch(imgs.data_ptr(), *ptrs, out.data_ptr(), 1, 1163, T, Hp, Wp,
+                                  2, dev, stream)  # a pixel of 2 bytes
+    assert rc < 0 and b"bad itemsize" in lib.gather_strips_error_string(rc)
+    # the wrapper's own launch, with a pixel size the kernel refuses
+    bad = types.SimpleNamespace(
+        gather_strips_launch=lambda *a: lib.gather_strips_launch(*a[:10], 2, *a[11:]),
+        gather_strips_error_string=lib.gather_strips_error_string)
+    monkeypatch.setattr(_kernels, "load", lambda: bad)
+    with pytest.raises(RuntimeError, match="gather_strips launch failed: .*bad itemsize"):
+        S.gather_strips(imgs, oyq, obx, f)
 
 
 @pytest.mark.cuda
