@@ -3,7 +3,7 @@
 the LK tracker, rendered frames -> tracks -> sync end to end, telemetry
 files -> sync, the reference engine's golden data, the recipe pipeline
 (video file -> CSV, its CLI) at full width, the long-term drift run, the
-window mesh and the hybrid tracker.
+window mesh, the hybrid tracker and bench.py's headline workload.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --parent-csrc DIR   # also time an earlier K3 source
@@ -166,9 +166,20 @@ Phases (any failure exits non-zero and prints no result line):
 22. K1/K2/K3 against their plain versions, bit-equal, at every shape
     phases 19-21 launched them at that no earlier phase compared;
 23. K3's kernel duration from torch.profiler (and index_select's, and
-    the parent's) at every shape phases 10, 14, 18 and 22 compared,
+    the parent's) at every shape phases 10, 14, 18, 22 and 24 compared,
     beside the event time and the bound; last, since a profiler
-    session may slow the host's later launches.
+    session may slow the host's later launches;
+24. (run before phase 23) bench.py's headline workload through
+    `rssync_tpu_torch.testing.bench.run` at full size: 3600 tracked pairs
+    of 2704x2028 (15 dispatches of 240), the 49-frame textured scene,
+    PreSync and 4 Sync passes at the engine operating point, each stage
+    timed (one warm-up, best of 3); the counters zeroed just before and
+    read after each stage. Its result object on a `# bench:` line;
+    offset error <= 0.5 ms, on-video error <= 0.03 / 0.12 px, K2 and K3
+    launched and bit-equal to their plain versions at every launch
+    shape (the bench's own check), and every check of the bench held;
+    then K1/K2/K3 against their plain versions at any launch shape no
+    earlier phase compared.
 
 The second-to-last line is a JSON object describing every kernel: its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
@@ -177,7 +188,8 @@ at every shape (a row from phase 18 names the runs that launched its
 shape under `path`; phase 22's name phases 19-21). `path` names the
 path that launched it; the
 kernels of the engine and tracker paths also carry `recipe_launches`,
-their launches in phase 16 (a). The last line is
+their launches in phase 16 (a), and `bench_launches`, theirs in phase
+24 (warm-ups and timed repetitions together). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -291,23 +303,6 @@ def wall_s(fn, torch, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def score_inputs(np, torch, seed, B, F, N, I, dev):
-    """Row-normalized residual rows, unit hypotheses, counts (with rows
-    of 0 and 1 valid features), from a numpy seed."""
-    rng = np.random.default_rng(seed)
-    P = rng.standard_normal(size=(B, 3, F, N), dtype=np.float32)
-    counts = rng.integers(N // 2, N + 1, size=(B, F)).astype(np.int32)
-    if F > 2:  # one row at F = 1 (the single-frame guessers) keeps its count
-        counts[:, 0] = 0
-        counts[:, 1] = 1
-    P *= (np.arange(N) < counts[..., None])[:, None]
-    n2 = np.sum(P * P, axis=1, keepdims=True)
-    P *= np.where(n2 < 1e-24, 1.0, 1.0 / np.sqrt(np.maximum(n2, 1e-30))).astype(np.float32)
-    v = rng.standard_normal(size=(B, 3, F, I), dtype=np.float32)
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    return [torch.tensor(x, device=dev) for x in (P, v, counts)]
-
-
 def score_kernel_attrs(N: int, i16: bool) -> dict:
     """Registers and local-memory bytes a thread of the scoring kernel a
     launch at N features takes (csrc/score_quartile.cu picks it from N)."""
@@ -361,8 +356,10 @@ def score_bound(torch, nP, v, counts, out, i16: bool) -> tuple[float, str]:
 def compare_score(np, torch, S, PS, name, shape, dev, seed, flush):
     """K1/K2 vs plain version at one (B, F, N, I) launch shape; returns
     the measurements."""
+    from rssync_tpu_torch.testing.bench import score_inputs
+
     B, F, N, I = shape
-    nP, v, counts = score_inputs(np, torch, seed, B, F, N, I, dev)
+    nP, v, counts = score_inputs(seed, B, F, N, I, dev)
     if name == "score_quartile":
         nP, v, counts = nP[0], v[0], counts[0]
         kern, plain = S.score_quartile, S.score_quartile_ref
@@ -542,8 +539,10 @@ def compare_copy(np, torch, BC, PS, shape, dev, seed, flush, chunk):
 def compare_i16(np, torch, S, PS, shape, dev, seed, flush):
     """E8 vs its plain version and vs K2's kernel at one (B, F, N, I)
     shape; K2 and E8 timed in turns (K2, E8, E8, K2)."""
+    from rssync_tpu_torch.testing.bench import score_inputs
+
     B, F, N, I = shape
-    nP, v, counts = score_inputs(np, torch, seed, B, F, N, I, dev)
+    nP, v, counts = score_inputs(seed, B, F, N, I, dev)
     got = S.score_quartile_i16(nP, v, counts)
     want = S.score_quartile_i16_ref(nP, v, counts)
     k2 = S.score_quartile_batched(nP, v, counts)
@@ -1292,6 +1291,7 @@ def main() -> None:
             PRESYNC_STEP_MS,
             make_engine_problem,
         )
+        from rssync_tpu_torch.testing import bench as BENCH
         from rssync_tpu_torch.testing import golden as GD
         from rssync_tpu_torch.pipeline import __main__ as CLI
         from rssync_tpu_torch.pipeline import guess_orient as GO
@@ -1900,10 +1900,36 @@ def main() -> None:
                                   "phases 19-21", parent)
     phase("22 (K1/K2/K3 vs plain at the shapes of phases 19-21)", t0)
 
+    # -- phase 24 (before phase 23, whose profiler session comes last):
+    # bench.py's workload through the port's bench module ------------------
+    t0 = time.perf_counter()
+    S.reset_launch_counters()
+    ST.reset_launch_counters()
+    bench = BENCH.run(device=dev)
+    bench_kernels = bench["extras"]["kernels"]
+    bench_launches = {name: bench_kernels[name]["launches"] if name in bench_kernels else 0
+                      for name in ("score_quartile", "score_quartile_batched", "gather_strips")}
+    seen = {}
+    collect_shapes(seen, "24 bench", S, ST)
+    print(f"# bench: {json.dumps(bench)}", flush=True)
+    ex = bench["extras"]
+    check(ex["failed"] == [], f"bench: checks failed {ex['failed']}")
+    check(ex["offset_err_ms"] <= OFFSET_TOL_MS, f"bench offset error {ex['offset_err_ms']:.4f} ms")
+    check(ex["onvideo_track_med_px"] <= TEX_MED_PX and ex["onvideo_track_p95_px"] <= TEX_P95_PX,
+          f"bench on-video error {ex['onvideo_track_med_px']:.4f} / "
+          f"{ex['onvideo_track_p95_px']:.4f} px")
+    check(all(k["bit_equal"] for k in bench_kernels.values()),
+          "bench: a kernel differs from its plain version at a launch shape")
+    check(bench_launches["score_quartile_batched"] > 0 and bench_launches["gather_strips"] > 0,
+          f"bench: K2 or K3 was not launched {bench_launches}")
+    bench_rows = compare_new_shapes(np, torch, S, ST, PS, dev, seen, covered, 400, "phase 24",
+                                    parent)
+    phase("24 (bench.py's workload)", t0)
+
     # -- phase 23: K3's profiler durations at every shape compared ---------
     t0 = time.perf_counter()
     profile_strips_rows(torch, ST, PS, dev, strip_rows + e2_rows + recipe_rows["gather_strips"]
-                        + new_rows["gather_strips"], parent, card)
+                        + new_rows["gather_strips"] + bench_rows["gather_strips"], parent, card)
     phase("23 (K3 profiler durations)", t0)
 
     csrc = "rssync_tpu_torch/csrc/"
@@ -1918,15 +1944,17 @@ def main() -> None:
     entries = [
         ("score_quartile", "rssync_tpu/ops/pallas_score.py:139", csrc + "score_quartile.cu",
          engine, launches["score_quartile"], compared["score_quartile"],
-         compared["score_quartile"] + recipe_rows["score_quartile"] + new_rows["score_quartile"]),
+         compared["score_quartile"] + recipe_rows["score_quartile"] + new_rows["score_quartile"]
+         + bench_rows["score_quartile"]),
         ("score_quartile_batched", "rssync_tpu/ops/pallas_score.py:230",
          csrc + "score_quartile.cu", engine, launches["score_quartile_batched"],
          compared["score_quartile_batched"],
          compared["score_quartile_batched"] + recipe_rows["score_quartile_batched"]
-         + new_rows["score_quartile_batched"]),
+         + new_rows["score_quartile_batched"] + bench_rows["score_quartile_batched"]),
         ("gather_strips", "rssync_tpu/frontend/tracking.py:434", csrc + "gather_strips.cu",
          tracker, k3_launches["gather_strips"], strip_rows[: len(k3_shapes)],
-         strip_rows + recipe_rows["gather_strips"] + new_rows["gather_strips"]),
+         strip_rows + recipe_rows["gather_strips"] + new_rows["gather_strips"]
+         + bench_rows["gather_strips"]),
         ("u8_to_bf16", "experiments/r4_u8pass.py:54", csrc + "convert_u8.cu", h + "r4_u8pass",
          probe_paths["e5"][0], e5_rows, e5_rows),
         ("u8_to_bf16", "experiments/r4_u8pass2.py:61", csrc + "convert_u8.cu",
@@ -1958,6 +1986,9 @@ def main() -> None:
             # launches on the recipe path (phase 16 (a), counters zeroed
             # just before run_recipe and read just after)
             kernels[-1]["recipe_launches"] = recipe_launches[name]
+            # launches on phase 24's bench run (counters zeroed just before
+            # its stages and read after each)
+            kernels[-1]["bench_launches"] = bench_launches[name]
     print(f"# total {time.perf_counter() - t_start:.2f} s ({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

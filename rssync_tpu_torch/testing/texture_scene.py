@@ -8,9 +8,12 @@ point between consecutive frames is known in closed form.
 
 A copy of rssync_tpu/testing/texture_scene.py (the same numpy draws,
 so one seed gives the same frames); the port imports nothing of the
-JAX package. Rendering is host-side (scipy affine_transform) and
-takes seconds a frame at 2704x2028; a sequence may be cached in
-`cache_dir`, which is off by default.
+JAX package. One deliberate deviation: where the background's padding
+is odd at a frame size that is a multiple of 4, rssync_tpu's copy
+raises and this one edge-pads the fine octave to size. Rendering is
+host-side (scipy affine_transform) and takes seconds a frame at
+2704x2028; a sequence may be cached in `cache_dir`, which is off by
+default.
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ def render_scene(
     # large-motion frames against such a scene)
     fine = rng.normal(size=(Hb // 4, Wb // 4)).astype(np.float32)
     fine = ndimage.zoom(fine, 4.0, order=3)[:Hb, :Wb]
+    # the zoom has 4 (Hb // 4) rows and 4 (Wb // 4) columns: short of
+    # (Hb, Wb) unless both are multiples of 4 (an odd pad at frame sizes
+    # that are), where rssync_tpu's copy raises; edge rows fill the gap
+    fine = np.pad(fine, ((0, Hb - fine.shape[0]), (0, Wb - fine.shape[1])), mode="edge")
     tex = ndimage.gaussian_filter(fine, 1.2)
     for sigma in (8.0, 32.0, 128.0):
         oct_ = rng.normal(size=(Hb, Wb)).astype(np.float32)

@@ -375,6 +375,19 @@ def test_texture_scene_equals_jax(ref):
     assert ttex.tracking_error(tracked, pts, got_aff, 160, 120, border=5) == (0.0, 0.0)
 
 
+def test_texture_scene_renders_an_odd_pad(ref):
+    """pad = int(60 * 3 ** 0.5) + 400 = 503 is odd: rssync_tpu's fine
+    octave comes out 2 px short and its sum raises; the port edge-pads
+    it and renders."""
+    frames, affines = ttex.render_scene(1, 3, 100, 100)
+    assert frames.shape == (3, 100, 100) and frames.dtype == np.uint8
+    pts = T.grid_points(100, 100, 20)
+    tracked = pts[None] + ttex.true_flow(affines, pts)
+    assert ttex.tracking_error(tracked, pts, affines, 100, 100, border=5) == (0.0, 0.0)
+    with pytest.raises(ValueError, match="broadcast"):
+        ref.texture_scene.render_scene(1, 3, 100, 100, cache_dir=None)
+
+
 def test_synthvideo_frames_match_jax(ref):
     """Per-pixel float32 sin/tanh of the two frameworks: at most 1 level
     apart on <= 1 % of the pixels."""
