@@ -6,7 +6,7 @@ files -> sync, the reference engine's golden data, the recipe pipeline
 window mesh, the hybrid tracker and bench.py's headline workload.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
-    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier K3 source
+    python3 chip_smoke.py --parent-csrc DIR   # also time an earlier K3 and E7 source
 
 Phases (any failure exits non-zero and prints no result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, the
@@ -83,7 +83,16 @@ Phases (any failure exits non-zero and prints no result line):
     launched them at (E8 also at the batched-Sync shape B=30, I=200),
     each bit-equal; kernel, plain and library times and the bound; E8
     also against K2's kernel, with K2's time beside its own, and its
-    registers and local-memory bytes a thread;
+    registers and local-memory bytes a thread. E7 is timed beside
+    `index_select`, a host-start `narrow().clone()` and, with
+    --parent-csrc DIR, the kernel of DIR's copy_block.cu (the first E7
+    kernel's C interface, built alone; its copies bit-equal too), each
+    behind the 1 GiB zero fill and behind a read-only flush (an int32
+    sum over the same buffer: L2 cold but clean), with the bound's
+    share of each; then E7 at its edge cases
+    (ops/blockcopy.py::copy_edges: n = 1, n = T, the last start,
+    one 16-byte frame, a block under one stage, one 16-byte vector past
+    a stage on the block and on every CTA, float32), bit-equal;
 13. the patch paths of rssync_tpu_torch/experiments, each with its
     kernel's counters zeroed just before and read just after:
     pallas_patch.extract_patches (E1) at mb_extract's 2028x2704 image
@@ -167,8 +176,10 @@ Phases (any failure exits non-zero and prints no result line):
     phases 19-21 launched them at that no earlier phase compared;
 23. K3's kernel duration from torch.profiler (and index_select's, and
     the parent's) at every shape phases 10, 14, 18, 22 and 24 compared,
-    beside the event time and the bound; last, since a profiler
-    session may slow the host's later launches;
+    beside the event time and the bound; then E7's (and the parent E7's,
+    index_select's and narrow().clone()'s) at every shape phase 12
+    compared; last, since a profiler session may slow the host's later
+    launches;
 24. (run before phase 23) bench.py's headline workload through
     `rssync_tpu_torch.testing.bench.run` at full size: 3600 tracked pairs
     of 2704x2028 (15 dispatches of 240), the 49-frame textured scene,
@@ -186,7 +197,7 @@ The second-to-last line is a JSON object describing every kernel: its
 shape its main path launched it at, and `shapes` holds the measurements
 at every shape (a row from phase 18 names the runs that launched its
 shape under `path`; phase 22's name phases 19-21). `path` names the
-path that launched it; the
+path that launched it, `state` whether its port was also redesigned; the
 kernels of the engine and tracker paths also carry `recipe_launches`,
 their launches in phase 16 (a), and `bench_launches`, theirs in phase
 24 (warm-ups and timed repetitions together). The last line is
@@ -497,43 +508,110 @@ def compare_convert(np, torch, CV, PS, shape, dev, seed, flush):
     return out
 
 
-def compare_copy(np, torch, BC, PS, shape, dev, seed, flush, chunk):
+def copy_library_calls(torch, frames, start, n) -> dict:
+    """{name: call} of the two PyTorch calls that compute E7's copy:
+    index_select with the start on the card, narrow().clone() with it
+    on the host (read here, once)."""
+    idx = start.long() + torch.arange(n, device=frames.device)
+    s = int(start.item())
+    return {"index_select": lambda: torch.index_select(frames, 0, idx),
+            "narrow_clone": lambda: frames.narrow(0, s, n).clone()}
+
+
+def copy_calls(torch, BC, PS, frames, start, n, parent) -> dict:
+    """{name: call} of E7's kernel, the library calls and, with `parent`
+    (an earlier copy_block.cu, PS.build_parent_copy), the parent kernel."""
+    calls = {"kernel": lambda: BC.copy_block(frames, start, n),
+             **copy_library_calls(torch, frames, start, n)}
+    if parent is not None:
+        calls["parent"] = PS.parent_copy_call(torch, parent, frames, start, n)
+    return calls
+
+
+def compare_copy(np, torch, BC, PS, shape, dev, seed, flush, chunk, parent=None):
     """E7 vs plain version at one (T, Hp, Wp, n, dtype) launch shape: every
-    chunk start of the path bit-equal; times at the middle start, with
-    `index_select` and a host-start `narrow(...).clone()` beside them."""
+    chunk start of the path bit-equal (the parent kernel's too); at the
+    middle start the kernel, `index_select`, a host-start
+    `narrow(...).clone()` and the parent kernel, each timed behind the
+    1 GiB zero fill and behind the read-only flush (an int32 sum over
+    it), with its share of the bound; the profiler's durations come in
+    phase 23."""
     T, Hp, Wp, n, dtype = shape
     check(dtype == "torch.uint8", f"copy_block: unexpected dtype {dtype}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     frames = torch.randint(0, 256, (T, Hp, Wp), dtype=torch.uint8, device=dev, generator=gen)
     starts = [torch.tensor([s], dtype=torch.int32, device=dev)
               for s in range(0, T - n + 1, chunk)]
-    errs = []
+    errs, parent_equal = [], True
     for st in starts:
         got, want = BC.copy_block(frames, st, n), BC.copy_block_ref(frames, st, n)
         errs.append(float((got.float() - want.float()).abs().max()))
+        if parent is not None:
+            parent_equal &= bool(torch.equal(
+                PS.parent_copy_call(torch, parent, frames, st, n)(), want))
     torch.cuda.synchronize()
     equal = max(errs) == 0.0
+    check(parent_equal, f"the parent E7 differs from plain at {shape}")
     st = starts[len(starts) // 2]
-    s_host = int(st.item())
-    idx = st.long() + torch.arange(n, device=dev)
     n_bytes = 2 * n * Hp * Wp + 4
     bound_ms, bound_by = bound(n_bytes, 0)
+    times = {}
+    for name, fn in copy_calls(torch, BC, PS, frames, st, n, parent).items():
+        zero = PS.event_ms(torch, fn, flush, 20)
+        clean = PS.event_ms(torch, fn, flush, 20, read_only=True)
+        times[name] = dict(ms=zero, read_only_ms=clean, share=bound_ms / zero,
+                           read_only_share=bound_ms / clean)
     out = dict(
-        T=T, Hp=Hp, Wp=Wp, n=n, dtype=dtype, starts=len(starts), bit_equal=equal,
-        max_abs_err=max(errs),
-        ms=PS.event_ms(torch, lambda: BC.copy_block(frames, st, n), flush, 20),
+        T=T, Hp=Hp, Wp=Wp, n=n, dtype=dtype, seed=seed, starts=len(starts),
+        start=int(st.item()), bit_equal=equal,
+        max_abs_err=max(errs), ms=times["kernel"]["ms"],
         plain_ms=PS.event_ms(torch, lambda: BC.copy_block_ref(frames, st, n), flush, 20),
-        library_ms=PS.event_ms(torch, lambda: torch.index_select(frames, 0, idx), flush, 20),
-        narrow_clone_ms=PS.event_ms(torch, lambda: frames.narrow(0, s_host, n).clone(), flush,
-                                    20),
-        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+        library_ms=times["index_select"]["ms"], narrow_clone_ms=times["narrow_clone"]["ms"],
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, times=times,
     )
-    print(f"# copy_block T={T} {Hp}x{Wp} n={n}: {len(starts)} starts bit-equal {equal}, kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, index_select "
-          f"{out['library_ms']:.4f} ms, narrow+clone {out['narrow_clone_ms']:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB)", flush=True)
+    print(f"# copy_block T={T} {Hp}x{Wp} n={n}: {len(starts)} starts bit-equal {equal}"
+          f"{', parent too' if parent is not None else ''}, plain {out['plain_ms']:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB)", flush=True)
+    for name, r in times.items():
+        print(f"#   {name}: event {r['ms']:.4f} ms (share {r['share']:.3f}), read-only flush "
+              f"{r['read_only_ms']:.4f} ms (share {r['read_only_share']:.3f})", flush=True)
     check(equal, f"copy_block differs from its plain version at {shape}")
     return out
+
+
+def compare_copy_edges(torch, BC, dev) -> None:
+    """E7 vs plain version at its edge cases (blockcopy.copy_edges):
+    bit-equal, or the run fails."""
+    for i, (label, shape, dtype, s, n) in enumerate(BC.copy_edges(BC.sm_count(dev))):
+        frames = BC.edge_frames(shape, dtype, dev, 60 + i)
+        st = torch.tensor([s], dtype=torch.int32, device=dev)
+        equal = bool(torch.equal(BC.copy_block(frames, st, n), BC.copy_block_ref(frames, st, n)))
+        ctas = BC.copy_plan(n * frames[0].numel() * frames.element_size(), BC.sm_count(dev))
+        print(f"# copy_block edge {label}: {tuple(shape)} {dtype} start {s} n {n}, {ctas} "
+              f"CTAs: bit-equal {equal}", flush=True)
+        check(equal, f"copy_block differs from its plain version at the edge case {label}")
+
+
+def profile_copy_rows(torch, BC, PS, dev, rows, parent, card) -> None:
+    """Phase 23: the profiler's kernel duration of E7, the parent E7
+    (where given), index_select and narrow().clone() at the inputs of
+    every compared row, remade from its seed; added to the rows."""
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    for r in rows:
+        gen = torch.Generator(device=dev).manual_seed(r["seed"])
+        frames = torch.randint(0, 256, (r["T"], r["Hp"], r["Wp"]), dtype=torch.uint8,
+                               device=dev, generator=gen)
+        st = torch.tensor([r["start"]], dtype=torch.int32, device=dev)
+        n = r["n"]
+        for name, fn in copy_calls(torch, BC, PS, frames, st, n, parent).items():
+            prof = PS.profiler_ms(torch, fn, flush)
+            r["times"][name]["profiler_ms"] = prof
+            print(f"# copy_block T={r['T']} n={n} {name}: event {r['times'][name]['ms']:.4f} ms, "
+                  f"read-only flush {r['times'][name]['read_only_ms']:.4f} ms, profiler "
+                  f"{PS.fmt_ms(prof)} ms"
+                  + (f" (share {r['bound_ms'] / prof:.3f})" if prof else "") + f" ({card})",
+                  flush=True)
+    del flush
 
 
 def compare_i16(np, torch, S, PS, shape, dev, seed, flush):
@@ -1232,8 +1310,10 @@ def hybrid_phase(np, torch, dev, card, ST, TR, seen) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description="Drive the PyTorch + CUDA port on one card.")
     ap.add_argument("--parent-csrc", metavar="DIR",
-                    help="a csrc/ directory holding an earlier gather_strips.cu with the "
-                         "first K3 kernel's C interface: its K3 is timed beside the kernel")
+                    help="a directory of earlier sources: its gather_strips.cu (the "
+                         "first K3 kernel's C interface) and copy_block.cu (the first E7 "
+                         "kernel's) are timed beside the kernels; a source missing there or "
+                         "equal to this checkout's is skipped")
     args = ap.parse_args()
     try:
         import torch
@@ -1329,11 +1409,21 @@ def main() -> None:
     _kernels.load()
     print(f"# kernel build+load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc, one process per source, {_kernels.build_seconds:.2f} s)", flush=True)
-    parent = None
-    if args.parent_csrc:  # an earlier K3, timed beside the kernel wherever K3 is compared
-        parent = PS.build_parent(Path(args.parent_csrc) / "gather_strips.cu")
-        print(f"# parent K3 from {args.parent_csrc} built: {time.perf_counter() - t0:.2f} s",
-              flush=True)
+    # an earlier K3 and E7, timed beside the kernels wherever they are
+    # compared; a source equal to this checkout's has nothing to compare
+    def earlier(name, build):
+        src = Path(args.parent_csrc) / name
+        if not src.exists() or src.read_bytes() == (_kernels.CSRC / name).read_bytes():
+            return None
+        lib = build(src)
+        print(f"# parent {name} from {args.parent_csrc} built: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        return lib
+
+    parent = copy_parent = None
+    if args.parent_csrc:
+        parent = earlier("gather_strips.cu", PS.build_parent)
+        copy_parent = earlier("copy_block.cu", PS.build_parent_copy)
     make_log = make.communicate(timeout=300)[0]
     check(make.returncode == 0, f"make -C native/gpmf failed:\n{make_log}")
     print(f"# native telemetry parser built: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1700,8 +1790,10 @@ def main() -> None:
                for i, sh in enumerate(probe_paths["e5"][1])]
     e6_rows = [compare_convert(np, torch, CV, PS, sh, dev, 30 + i, flush)
                for i, sh in enumerate(probe_paths["e6"][1])]
-    e7_rows = [compare_copy(np, torch, BC, PS, sh, dev, 40 + i, flush, FULL.chunk)
+    e7_rows = [compare_copy(np, torch, BC, PS, sh, dev, 40 + i, flush, FULL.chunk,
+                            copy_parent)
                for i, sh in enumerate(probe_paths["e7"][1])]
+    compare_copy_edges(torch, BC, dev)
     sync_shape = (30, 60, 130, 200)  # batched Sync's K2 launch, E8 on no path there
     e8_rows = [compare_i16(np, torch, S, PS, sh, dev, 50 + i, flush)
                for i, sh in enumerate(e8_shapes + [sync_shape] * (sync_shape not in e8_shapes))]
@@ -1930,7 +2022,8 @@ def main() -> None:
     t0 = time.perf_counter()
     profile_strips_rows(torch, ST, PS, dev, strip_rows + e2_rows + recipe_rows["gather_strips"]
                         + new_rows["gather_strips"] + bench_rows["gather_strips"], parent, card)
-    phase("23 (K3 profiler durations)", t0)
+    profile_copy_rows(torch, BC, PS, dev, e7_rows, copy_parent, card)
+    phase("23 (K3 and E7 profiler durations)", t0)
 
     csrc = "rssync_tpu_torch/csrc/"
     h = "rssync_tpu_torch.experiments."
@@ -1972,12 +2065,24 @@ def main() -> None:
         ("extract_patches", "experiments/mb_extract2.py:93", patch_src, h + "mb_extract2",
          patch_paths["e4"][0], patch_rows_of("e4"), patch_rows_of("e4")),
     ]
+    # the TPU kernels whose port was redesigned for Hopper after its first
+    # version (PERF.md §6 names the change that did it)
+    redesigned = {
+        "rssync_tpu/ops/pallas_score.py:139", "rssync_tpu/ops/pallas_score.py:230",
+        "rssync_tpu/frontend/tracking.py:434", "experiments/r4_slice2.py:65",
+        "experiments/r4_i16score.py:86", "experiments/pallas_patch.py:100",
+        "experiments/r3_dma.py:66", "experiments/mb_extract.py:164",
+        "experiments/mb_extract2.py:93",
+    }
+    stale = redesigned - {e[1] for e in entries}
+    check(not stale, f"redesigned kernels that no entry replaces: {sorted(stale)}")
     kernels = []
     for name, replaces, source, path, n, main_rows, rows in entries:
         # the times stated are those of the main path's heaviest launch shape
         heavy = max(main_rows, key=lambda r: r["bound_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, path=path,
+            state="ported; redesigned" if replaces in redesigned else "ported",
             launches=n, max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=heavy["ms"], plain_ms=heavy["plain_ms"], bound_ms=heavy["bound_ms"],
             bound_by=heavy["bound_by"], library_ms=heavy["library_ms"], shapes=rows,

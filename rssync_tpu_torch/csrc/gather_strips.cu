@@ -55,7 +55,12 @@
 
 #include <algorithm>
 
+#include "bulk_ring.cuh"
+
 namespace {
+
+using rssync::bar_wait;
+using rssync::smem_addr;
 
 constexpr int kStripRows = 40;
 constexpr int kLane = 128;
@@ -71,21 +76,6 @@ constexpr int kCtasPerSm = 8;
 // error codes of the launch below 0 (CUDA runtime errors are above)
 constexpr int kNoEncoder = -1000000;
 constexpr int kBadArgs = -1000001;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
 
 __global__ void __launch_bounds__(kThreads) gather_strips_tma_kernel(
     const __grid_constant__ CUtensorMap img_map, const int* __restrict__ oyq,
@@ -287,12 +277,8 @@ int gather_strips_launch(const void* img, const void* oyq, const void* obx,
   }
   const uint32_t strip_bytes = kStripRows * kStripCols * itemsize;
   const int smem = kStages * strip_bytes + kStages * 8 + kThreads * sizeof(int2);
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024 && (device >= 64 || g_smem_allowed[device] < smem)) {
-    err = cudaFuncSetAttribute(gather_strips_tma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess && device < 64) g_smem_allowed[device] = smem;
-  }
+  cudaError_t err = rssync::allow_smem(reinterpret_cast<const void*>(gather_strips_tma_kernel),
+                                       device, smem, g_smem_allowed);
   if (err == cudaSuccess) {
     gather_strips_tma_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         *map, static_cast<const int*>(oyq), static_cast<const int*>(obx),

@@ -57,8 +57,13 @@ def _nvcc() -> str:
     )
 
 
+def _headers(csrc: Path) -> bytes:
+    """The headers the sources of `csrc` share, names and contents."""
+    return b"".join(p.name.encode() + p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
+
+
 def _library_path() -> Path:
-    h = hashlib.sha256()
+    h = hashlib.sha256(_headers(CSRC))
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -96,6 +101,23 @@ def _build(target: Path) -> None:
         _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, target)
     build_seconds = time.perf_counter() - t0
+
+
+def build_single(src: Path) -> ctypes.CDLL:
+    """One CUDA source (an earlier checkout's kernel) built alone with the
+    port's nvcc flags, cached by its content and its directory's headers
+    in `BUILD_DIR`/singles/, and loaded unbound: the caller sets the
+    argument types."""
+    out_dir = BUILD_DIR / "singles"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    h = hashlib.sha256(src.read_bytes() + _headers(src.parent) + " ".join(NVCC_FLAGS).encode())
+    lib_path = out_dir / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            lib = os.path.join(tmp, "lib.so")
+            _nvcc_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, str(src)]])
+            os.replace(lib, lib_path)
+    return ctypes.CDLL(str(lib_path))
 
 
 def load() -> ctypes.CDLL:

@@ -20,15 +20,15 @@ implementations:
 - `index_select`: one PyTorch call over the (T * Hp * Wp/128, 128) row
   view (the library yardstick; the port never calls it).
 The last line is all of it as one JSON object; --out also writes it to
-a file. `build_parent` / `parent_call` let chip_smoke.py time the
-kernel of an earlier gather_strips.cu alone (--parent-csrc).
+a file. `build_parent` / `parent_call` and `build_parent_copy` /
+`parent_copy_call` let chip_smoke.py time the kernel of an earlier
+gather_strips.cu and copy_block.cu alone (--parent-csrc).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import statistics
 import subprocess
@@ -100,23 +100,11 @@ def index_select_call(torch, ST, img, oyq, obx, fidx):
 def build_parent(src: Path):
     """An earlier K3 source with the first kernel's C interface
     (`gather_strips_launch(img, oyq, obx, fidx, out, B, N, T, Hp, Wp,
-    itemsize, stream)`), built alone with the port's nvcc flags (cached
-    by content, in rssync_tpu_torch/build/parents/) and bound with
-    ctypes."""
+    itemsize, stream)`), built alone with the port's nvcc flags
+    (`_kernels.build_single`) and bound with ctypes."""
     from rssync_tpu_torch.ops import _kernels
 
-    out_dir = _kernels.BUILD_DIR / "parents"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    h = hashlib.sha256(src.read_bytes() + " ".join(_kernels.NVCC_FLAGS).encode())
-    lib_path = out_dir / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        tmp = lib_path.with_suffix(".tmp.so")
-        proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o",
-                               str(tmp), str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        tmp.replace(lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _kernels.build_single(src)
     lib.gather_strips_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.gather_strips_launch.restype = ctypes.c_int
@@ -144,15 +132,57 @@ def parent_call(torch, lib, img, oyq, obx, fidx):
     return fn
 
 
-def event_ms(torch, fn, flush, reps: int = REPS) -> float:
+def build_parent_copy(src: Path):
+    """An earlier E7 source with the first kernel's C interface
+    (`copy_block_launch(frames, start, out, T, n, frame_bytes, sm_count,
+    stream)`), built alone with the port's nvcc flags
+    (`_kernels.build_single`) and bound with ctypes."""
+    from rssync_tpu_torch.ops import _kernels
+
+    lib = _kernels.build_single(src)
+    lib.copy_block_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.copy_block_launch.restype = ctypes.c_int
+    lib.copy_block_error_string.argtypes = [ctypes.c_int]
+    lib.copy_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def parent_copy_call(torch, lib, frames, start, n):
+    """A call of a build_parent_copy library copying frames[start :
+    start + n]: allocate, launch on the current stream, raise on a failed
+    launch."""
+    T = frames.shape[0]
+    frame_bytes = frames[0].numel() * frames.element_size()
+    sms = torch.cuda.get_device_properties(frames.device).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fn():
+        out = torch.empty((n, *frames.shape[1:]), dtype=frames.dtype, device=frames.device)
+        rc = lib.copy_block_launch(frames.data_ptr(), start.data_ptr(), out.data_ptr(), T, n,
+                                   frame_bytes, sms, stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: {lib.copy_block_error_string(rc).decode()}")
+        return out
+
+    return fn
+
+
+def event_ms(torch, fn, flush, reps: int = REPS, read_only: bool = False) -> float:
     """Median of `reps` CUDA-event-timed calls after one warm-up, each
     behind an overwrite of `flush` (L2 cold; the host enqueues while the
-    device is busy with the flush, so the events time device work)."""
+    device is busy with the flush, so the events time device work). With
+    `read_only` the flush is an int32 sum over `flush` instead: it leaves
+    the L2 cold too, but holding clean lines, none of which is written
+    back inside the timed call."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if read_only:
+            flush.view(torch.int32).sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

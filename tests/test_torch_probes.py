@@ -13,6 +13,7 @@ so the card tests run where JAX is not installed:
 """
 
 import importlib.util
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -160,6 +161,49 @@ def test_copy_block_checks_its_inputs():
     assert torch.equal(got, frames[3:5]) and got.data_ptr() != frames[3].data_ptr()
 
 
+#: E7's block sizes (bytes) and SM counts for its launch plan: one
+#: 16-byte frame, blocks under a stage, exactly one stage a CTA, a ragged
+#: last chunk, the probe's 98.4 MB block (17 of 2056x2816 u8)
+_STAGE = BC.STAGE_BYTES
+_PROBE_BLOCK = 17 * 2056 * 2816
+_PLAN_CASES = [(16, 132), (16 * 1000, 132), (132 * _STAGE, 132), (132 * _STAGE + 16, 132),
+               (3 * _STAGE + 48, 1), (_PROBE_BLOCK, 132), (_PROBE_BLOCK, 1), (16 * 12345, 7)]
+#: and the block of each of the card tests' edge cases (blockcopy.copy_edges)
+_PLAN_CASES += [(n * int(np.prod(shape[1:])) * (4 if dtype == "float32" else 1), 132)
+                for _, shape, dtype, _, n in BC.copy_edges(132)]
+
+
+@pytest.mark.parametrize("total,sms", _PLAN_CASES)
+def test_copy_plan_covers_the_block_once(total, sms):
+    ctas = BC.copy_plan(total, sms)
+    assert 1 <= ctas <= sms
+    chunks = BC.plan_chunks(ctas, total)
+    assert all(o % 16 == 0 and 16 <= n <= _STAGE and n % 16 == 0 for _, o, n in chunks)
+    offsets = sorted((o, n) for _, o, n in chunks)
+    assert offsets[0][0] == 0 and sum(n for _, n in offsets) == total
+    assert all(o + n == o2 for (o, n), (o2, _) in zip(offsets, offsets[1:]))
+    # round-robin: chunk i of the block, at i * STAGE_BYTES, goes to CTA
+    # i % ctas, so no CTA idles and their chunk counts differ by at most one
+    assert all(o == i * _STAGE and c == i % ctas
+               for i, (c, o, _) in enumerate(sorted(chunks, key=lambda ch: ch[1])))
+    counts = [sum(c2 == c for c2, _, _ in chunks) for c in range(ctas)]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+
+
+def test_copy_plan_refuses_unaligned_sizes():
+    for total in (0, 8, 24, 16 * 1000 + 4):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            BC.copy_plan(total, 132)
+
+
+def test_copy_plan_stage_is_the_kernels():
+    """plan_chunks models the kernel's walk only while STAGE_BYTES is
+    csrc/copy_block.cu's kStageBytes."""
+    src = (Path(BC.__file__).parent.parent / "csrc" / "copy_block.cu").read_text()
+    m = re.search(r"constexpr uint32_t kStageBytes = (\d+) \* (\d+);", src)
+    assert m and int(m[1]) * int(m[2]) == BC.STAGE_BYTES
+
+
 # ---------------------------------------------------------------------------
 # E8: int16-compare scoring
 
@@ -282,13 +326,24 @@ def test_u8_to_bf16_kernel_matches_plain_on_card(cuda, shape, offset):
 
 
 @pytest.mark.cuda
-def test_copy_block_kernel_matches_plain_on_card(cuda):
-    frames = torch.as_tensor(_u8(6, 33, 64, 256), device=cuda)
+@pytest.mark.parametrize("edge", [None] + [label for label, *_ in BC.copy_edges(132)])
+def test_copy_block_kernel_matches_plain_on_card(cuda, edge):
+    """The probe's chunk starts on a small clip, then each of
+    blockcopy.copy_edges (n = 1, n = T, the last start, one 16-byte
+    frame, under one stage, a vector past a stage on the block and on
+    every CTA of this card, float32)."""
+    if edge is None:
+        frames, cases = torch.as_tensor(_u8(6, 33, 64, 256), device=cuda), [(0, 17), (15, 17),
+                                                                             (16, 17)]
+    else:
+        edges = {e[0]: e[1:] for e in BC.copy_edges(BC.sm_count(cuda))}
+        shape, dtype, s, n = edges[edge]
+        frames, cases = BC.edge_frames(shape, dtype, cuda, 7), [(s, n)]
     before = BC.LAUNCHES["copy_block"]
-    for s in (0, 15, 16):
+    for s, n in cases:
         start = torch.tensor([s], dtype=torch.int32, device=cuda)
-        assert torch.equal(BC.copy_block(frames, start, 17), BC.copy_block_ref(frames, start, 17))
-    assert BC.LAUNCHES["copy_block"] == before + 3
+        assert torch.equal(BC.copy_block(frames, start, n), BC.copy_block_ref(frames, start, n))
+    assert BC.LAUNCHES["copy_block"] == before + len(cases)
 
 
 @pytest.mark.cuda
