@@ -131,8 +131,8 @@ Phases (any failure exits non-zero and prints no result line):
     `run_recipe` sequential, (c) the CLI's `main` twice with --trace and
     a track cache (the second run a cache hit) and (d) `track_frames` on
     the four windows against `track_clip` on the same decoded frames,
-    the counters zeroed around each ((a) prints the tracking stage's
-    decode, pad, upload and track + emit seconds a block): (a) and (b)
+    the counters zeroed around each ((a) runs under a recording and
+    prints the seconds of the tracking stage's spans): (a) and (b)
     within 0.5 ms of the truth and 0.05 ms of each other, (a) within
     0.1 ms of phase 8's run_batched on the same decoded frames and
     0.15 ms of phase 8's delays on the rendered frames (mp4v is lossy);
@@ -807,15 +807,14 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
     def counts():
         return {**S.LAUNCHES, **ST.LAUNCHES}
 
-    # (a) batched, with the tracking stage's per-block lines
+    # (a) batched, recorded: the tracking stage's spans
+    from rssync_tpu_torch.utils.timing import recording
+
     zero()
     timings = Timings()
-    os.environ["RSSYNC_TRACK_TIMING"] = "1"
     t1 = time.perf_counter()
-    try:
+    with recording() as rec:
         res_a = RC.run_recipe(recipe("a"), batched=True, timings=timings)
-    finally:
-        del os.environ["RSSYNC_TRACK_TIMING"]
     t_a = time.perf_counter() - t1
     launches_a = counts()
     collect_shapes(seen, "recipe (a)", S, ST)
@@ -824,6 +823,10 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
           flush=True)
     for line in timings.report().splitlines():
         print(f"#     {line}", flush=True)
+    for name, s in rec.summary().items():
+        if name.startswith("track."):
+            print(f"#     span {name}: {s['calls']} calls, {s['total_s']:.4f} s, self "
+                  f"{s['self_s']:.4f} s, counts {s['counts']}", flush=True)
     # (b) sequential
     zero()
     timings_b = Timings()
@@ -1327,7 +1330,6 @@ def main() -> None:
         from rssync_tpu_torch import create_sync_problem
         from rssync_tpu_torch.analysis.metrics import sync_rmse
         from rssync_tpu_torch.core import ransac as R
-        from rssync_tpu_torch.core import sync as SY
         from rssync_tpu_torch.core.presync import presync_grid
         from rssync_tpu_torch.parallel import batch as B
         from rssync_tpu_torch.parallel import mesh as M
@@ -1377,7 +1379,7 @@ def main() -> None:
         from rssync_tpu_torch.pipeline import guess_orient as GO
         from rssync_tpu_torch.pipeline import recipe as RC
         from rssync_tpu_torch.testing.synthvideo import make_clip, write_clip_files, write_gcsv
-        from rssync_tpu_torch.utils.timing import Timings
+        from rssync_tpu_torch.utils.timing import Timings, recording
         from rssync_tpu_torch.testing.texture_scene import render_scene, tracking_error
         from rssync_tpu_torch.utils import track_cache
 
@@ -1548,14 +1550,14 @@ def main() -> None:
 
     # the L-BFGS Sync at full width, after the same PreSync
     S.reset_launch_counters()
-    SY.reset_lbfgs_counters()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    lbfgs = sync_stage(sp, closed_wins, out["presync"], 0.0, radius_s, motion_opt="lbfgs")
-    torch.cuda.synchronize()
+    with recording() as rec:
+        lbfgs = sync_stage(sp, closed_wins, out["presync"], 0.0, radius_s, motion_opt="lbfgs")
+        torch.cuda.synchronize()
     t_lbfgs = time.perf_counter() - t1
     lbfgs_launches = dict(S.LAUNCHES)
-    lbfgs_counts = dict(SY.LBFGS_COUNTS)
+    lbfgs_counts = {k: rec.counted(f"lbfgs.{k}") for k in ("trips", "evaluations")}
     lbfgs_err_ms = float((lbfgs[-1].delay.double() - truth).abs().max()) * 1000
     lbfgs_iters = [int(r.iterations.max()) for r in lbfgs]
     lbfgs_trips = [int(r.motion_iterations.max()) for r in lbfgs]

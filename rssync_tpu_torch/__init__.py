@@ -26,7 +26,7 @@ Layering (mirrors rssync_tpu):
   analysis/  the sync-quality metric
   testing/   synthetic problems, rendered clips and scenes, the golden
              scenes, profilers
-  utils/     invariant guards, stage timings, the track cache
+  utils/     invariant guards, stage timings and spans, the track cache
 
 float32 math is pinned to IEEE at import: TF32 would silently drop
 mantissa bits from every float32 matmul and convolution on the card.

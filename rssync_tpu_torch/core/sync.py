@@ -37,6 +37,7 @@ import torch
 from rssync_tpu_torch.core.problem import SplineTable, TrackWindow, compute_problem
 from rssync_tpu_torch.core.ransac import guess_motion_window, guess_motion_window_batched
 from rssync_tpu_torch.ops.robust import clamp_k, safe_norm
+from rssync_tpu_torch.utils.timing import count, span
 
 # --- reference hyperparameters ---------------------------------------------
 SYNC_RANSAC_ITERS = 200        # GuessMotion hypotheses (ref :127)
@@ -117,17 +118,6 @@ def frame_losses_and_grads(
 
 # --- batched L-BFGS over frames --------------------------------------------
 
-#: trips of batched_lbfgs's loop and value-and-gradient evaluations (the
-#: start's and each line-search trial's) since the last reset, summed over
-#: calls; counted on the host, no device sync
-LBFGS_COUNTS = {"trips": 0, "evaluations": 0}
-
-
-def reset_lbfgs_counters() -> None:
-    for name in LBFGS_COUNTS:
-        LBFGS_COUNTS[name] = 0
-
-
 class _LBFGSState(NamedTuple):
     x: torch.Tensor        # (B, d)
     f: torch.Tensor        # (B,)
@@ -175,8 +165,12 @@ def _push(hist: torch.Tensor, new: torch.Tensor, store: torch.Tensor) -> torch.T
 
 
 def _all_done(done: torch.Tensor, i: int, check_every: int) -> bool:
-    """The loops' exit test, read on the host every `check_every` trips."""
-    return i % check_every == 0 and bool(done.all())
+    """The loops' exit test, read on the host every `check_every` trips
+    (count `host_reads`)."""
+    if i % check_every:
+        return False
+    count("host_reads")
+    return bool(done.all())
 
 
 def batched_lbfgs(
@@ -209,10 +203,14 @@ def batched_lbfgs(
     `check_every` trips: a trip after every lane is done changes
     nothing (a lane that accepted keeps its step, a done lane its
     state), so the iterates do not depend on it.
+
+    Counts (utils/timing.py): `lbfgs.trips`, the loop's trips, and
+    `lbfgs.evaluations`, the value-and-gradient evaluations (the
+    start's and each line-search trial's).
     """
     B, d = x0.shape
     f0, g0 = value_and_grad_fn(x0)
-    LBFGS_COUNTS["evaluations"] += 1
+    count("lbfgs.evaluations")
     done = safe_norm(g0, dim=-1) < min_grad_norm
     if frozen is not None:
         done = done | frozen
@@ -227,7 +225,7 @@ def batched_lbfgs(
     for it in range(max_iters):
         if _all_done(st.done, it, check_every):
             break
-        LBFGS_COUNTS["trips"] += 1
+        count("lbfgs.trips")
         d_dir = _two_loop_direction(st)
         gd = torch.sum(st.g * d_dir, dim=-1)
         # non-descent direction -> steepest descent restart
@@ -246,7 +244,7 @@ def batched_lbfgs(
             if _all_done(accepted, k, check_every):
                 break
             f_try, g_try = value_and_grad_fn(st.x + t[:, None] * d_dir)
-            LBFGS_COUNTS["evaluations"] += 1
+            count("lbfgs.evaluations")
             armijo_fail = f_try > st.f + armijo_c1 * t * gd
             gd_new = torch.sum(g_try * d_dir, dim=-1)
             too_negative = gd_new < wolfe_c2 * gd            # -> widen x2.1
@@ -455,57 +453,69 @@ def sync_loop(
     window is done or OUTER_MAX_ITERS; the done test costs one host
     sync per iteration. motion_opt: "irls" (motion_irls) or "lbfgs"
     (batched_lbfgs over every frame of every window, the frames of
-    finished windows frozen), as rssync_tpu/core/sync.py:471-474."""
+    finished windows frozen), as rssync_tpu/core/sync.py:471-474.
+
+    Spans: `sync.loop` the call (count `outer_iters`, the loop's trips),
+    and in each trip `sync.done` (the done test's host read, count
+    `host_reads`), `sync.motion` (the motion refinement) and `sync.step`
+    (the loss, its gradient, the backtracked step and the updates)."""
     if motion_opt not in ("irls", "lbfgs"):
         raise ValueError(f"unknown motion_opt {motion_opt!r}")
-    W = delay0.shape[0]
-    dtype, dev = delay0.dtype, delay0.device
-    delay = delay0.clone()
-    v = torch.zeros_like(delay)
-    M = M0
-    cc = torch.zeros(W, dtype=torch.int32, device=dev)
-    done = torch.zeros(W, dtype=torch.bool, device=dev)
-    iters = torch.zeros(W, dtype=torch.int32, device=dev)
-    tr_d = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
-    tr_s = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
-    motion_iters = torch.zeros(W, dtype=torch.int32, device=dev)
+    with span("sync.loop"):
+        W = delay0.shape[0]
+        dtype, dev = delay0.dtype, delay0.device
+        delay = delay0.clone()
+        v = torch.zeros_like(delay)
+        M = M0
+        cc = torch.zeros(W, dtype=torch.int32, device=dev)
+        done = torch.zeros(W, dtype=torch.bool, device=dev)
+        iters = torch.zeros(W, dtype=torch.int32, device=dev)
+        tr_d = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
+        tr_s = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
+        motion_iters = torch.zeros(W, dtype=torch.int32, device=dev)
 
-    for i in range(OUTER_MAX_ITERS):
-        if bool(done.all()):
-            break
-        active = ~done
-        # 1. motion refinement at the current delay
-        P = compute_problem(table, wins, delay)
-        if motion_opt == "irls":
-            M_new = motion_irls(P, M, var_k)
-            motion_iters = motion_iters + MOTION_IRLS_ITERS * active.to(torch.int32)
-        else:
-            M_new, lane_iters = _motion_lbfgs(P, M, var_k, wins.frame_mask, done)
-            motion_iters = motion_iters + lane_iters.amax(dim=-1)
-        # 2. Nesterov-lookahead backtracked delay step (ref :298-305)
-        x0 = delay - DELAY_MOMENTUM * v
-        fval, grad = _loss_and_grad(table, wins, x0, M_new, var_k)
-        step = _backtrack_step(
-            lambda x: window_loss(table, wins, x, M_new, var_k), x0, fval, grad
+        for i in range(OUTER_MAX_ITERS):
+            with span("sync.done"):
+                count("host_reads")
+                finished = bool(done.all())
+            if finished:
+                break
+            count("outer_iters")
+            active = ~done
+            with span("sync.motion"):
+                # 1. motion refinement at the current delay
+                P = compute_problem(table, wins, delay)
+                if motion_opt == "irls":
+                    M_new = motion_irls(P, M, var_k)
+                    motion_iters = motion_iters + MOTION_IRLS_ITERS * active.to(torch.int32)
+                else:
+                    M_new, lane_iters = _motion_lbfgs(P, M, var_k, wins.frame_mask, done)
+                    motion_iters = motion_iters + lane_iters.amax(dim=-1)
+            with span("sync.step"):
+                # 2. Nesterov-lookahead backtracked delay step (ref :298-305)
+                x0 = delay - DELAY_MOMENTUM * v
+                fval, grad = _loss_and_grad(table, wins, x0, M_new, var_k)
+                step = _backtrack_step(
+                    lambda x: window_loss(table, wins, x, M_new, var_k), x0, fval, grad
+                )
+                v_new = DELAY_MOMENTUM * v + step
+                delay_new = delay + v_new
+                cc_new = torch.where(torch.abs(step) < CONVERGE_STEP, cc + 1, 0)
+                done_new = (cc_new > CONVERGE_COUNT) | (torch.abs(delay_new - centers) > radius)
+                # 3. windows that were done already keep everything as it was
+                delay = torch.where(active, delay_new, delay)
+                v = torch.where(active, v_new, v)
+                M = torch.where(active[:, None, None], M_new, M)
+                cc = torch.where(active, cc_new, cc)
+                tr_d[:, i] = torch.where(active, delay_new, tr_d[:, i])
+                tr_s[:, i] = torch.where(active, step, tr_s[:, i])
+                iters = iters + active.to(torch.int32)
+                done = done | done_new
+        return SyncResult(
+            cost=window_loss(table, wins, delay, M, var_k), delay=delay,
+            iterations=iters, trace_delay=tr_d, trace_step=tr_s,
+            motion_iterations=motion_iters,
         )
-        v_new = DELAY_MOMENTUM * v + step
-        delay_new = delay + v_new
-        cc_new = torch.where(torch.abs(step) < CONVERGE_STEP, cc + 1, 0)
-        done_new = (cc_new > CONVERGE_COUNT) | (torch.abs(delay_new - centers) > radius)
-        # 3. windows that were done already keep everything as it was
-        delay = torch.where(active, delay_new, delay)
-        v = torch.where(active, v_new, v)
-        M = torch.where(active[:, None, None], M_new, M)
-        cc = torch.where(active, cc_new, cc)
-        tr_d[:, i] = torch.where(active, delay_new, tr_d[:, i])
-        tr_s[:, i] = torch.where(active, step, tr_s[:, i])
-        iters = iters + active.to(torch.int32)
-        done = done | done_new
-    return SyncResult(
-        cost=window_loss(table, wins, delay, M, var_k), delay=delay,
-        iterations=iters, trace_delay=tr_d, trace_step=tr_s,
-        motion_iterations=motion_iters,
-    )
 
 
 def _motion_lbfgs(P, M, var_k, frame_mask, window_done):
@@ -534,7 +544,7 @@ def sync_window(
     dev = win.counts.device
     f32 = dict(dtype=torch.float32, device=dev)
     delay0 = torch.as_tensor(initial_delay, **f32)
-    with torch.no_grad():
+    with torch.no_grad(), span("sync.init"):
         M0, var_k = init_motion(table, win, delay0, generator)
     res = sync_loop(
         table, win.map(lambda x: x[None]), delay0[None], M0[None], var_k[None],

@@ -42,9 +42,7 @@ chosen per run by `_range_feeds`.
 from __future__ import annotations
 
 import math
-import os
 import threading
-import time
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Iterator, Sequence
@@ -60,6 +58,7 @@ from rssync_tpu_torch.ops.strips import (
     gather_strips,
     strip_path_ok,
 )
+from rssync_tpu_torch.utils.timing import count, span
 
 LK_RADIUS = 10  # 21x21 window
 LK_ITERS = 10  # API default; the schedule runs fewer per level (_fine_plan)
@@ -658,21 +657,23 @@ def _lk_core(pyr_pairs: dict, pts, levels: int, radius: int, iters: int,
         pairs = {lvl: pyr_pairs[lvl] for lvl in {lvl_glob, lvl_vol}}
         hg = pyr_pairs[lvl_glob][0].shape[-2:]
         D_glob = max(2, min(hg) // 3)
-        d = _coarse_init(pairs, lvl_vol, lvl_glob, pts, D_glob)
+        with span("track.coarse"):
+            d = _coarse_init(pairs, lvl_vol, lvl_glob, pts, D_glob)
     else:
         d = torch.zeros((B, *pts.shape), dtype=_F32, device=dev)
 
-    for lvl, it_l, m_l, r_l in plan:
-        if lvl == 0 and level0 is not None:
-            clip, tmpl, fidx = level0
-            d = _lk_iterate(clip, pts, d, tmpl, r_l, it_l, m_l, fidx=fidx)
-            continue
-        scale = float(2**lvl)
-        d = _lk_level(
-            pyr_pairs[lvl][0], pyr_pairs[lvl][1], pts / scale, d / scale,
-            r_l, it_l, m_l,
-        ) * scale
-    return torch.as_tensor(pts, dtype=_F32, device=dev)[None] + d
+    with span("track.lk"):
+        for lvl, it_l, m_l, r_l in plan:
+            if lvl == 0 and level0 is not None:
+                clip, tmpl, fidx = level0
+                d = _lk_iterate(clip, pts, d, tmpl, r_l, it_l, m_l, fidx=fidx)
+                continue
+            scale = float(2**lvl)
+            d = _lk_level(
+                pyr_pairs[lvl][0], pyr_pairs[lvl][1], pts / scale, d / scale,
+                r_l, it_l, m_l,
+            ) * scale
+        return torch.as_tensor(pts, dtype=_F32, device=dev)[None] + d
 
 
 def _level_plan(levels: int, iters: int, radius: int):
@@ -686,8 +687,9 @@ def _lk_pairs_core(imgs_a, imgs_b, pts, levels: int, radius: int, iters: int) ->
     """Track pts from imgs_a[i] to imgs_b[i]: (B, H, W) x2 -> (B, N, 2)."""
     need, plan, fine0 = _level_plan(levels, iters, radius)
     hw = tuple(imgs_a.shape[-2:])
-    pyr_a = build_pyramid_sparse(_pad_lanes(imgs_a, fine0), levels, need, hw, plan)
-    pyr_b = build_pyramid_sparse(_pad_lanes(imgs_b, fine0), levels, need, hw, plan)
+    with span("track.pyramid"):
+        pyr_a = build_pyramid_sparse(_pad_lanes(imgs_a, fine0), levels, need, hw, plan)
+        pyr_b = build_pyramid_sparse(_pad_lanes(imgs_b, fine0), levels, need, hw, plan)
     return _lk_core({l: (pyr_a[l], pyr_b[l]) for l in need}, pts, levels, radius, iters)
 
 
@@ -701,7 +703,8 @@ def _lk_video_core(frames, pts, levels: int, radius: int, iters: int,
     if logical_hw is None:
         logical_hw = tuple(frames.shape[-2:])
         frames = _pad_lanes(frames, fine0)
-    pyr = build_pyramid_sparse(frames, levels, need, logical_hw, plan)
+    with span("track.pyramid"):
+        pyr = build_pyramid_sparse(frames, levels, need, logical_hw, plan)
     pairs = {l: (pyr[l][:-1], pyr[l][1:]) for l in need}
     return _lk_core(pairs, pts, levels, radius, iters)
 
@@ -871,17 +874,31 @@ def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
     (undistortion is elementwise, so each pair's rays equal
     `emit_track_result`'s). tracked: (P, N, 2) positions in frames
     frame_idx[i] + 1; frame_idx: (P,) index of each pair's first frame;
-    frame_ts: (P + 1,) seconds of the P + 1 frames."""
+    frame_ts: (P + 1,) seconds of the P + 1 frames.
+
+    Spans: `emit.lift` around each lift as enqueued, `emit.read` around
+    the three host reads (each waits for the card), `emit.set` around the
+    host intake, all inside `track.emit`."""
     P, N = tracked.shape[:2]
-    pts_t = torch.as_tensor(pts, dtype=_F32, device=tracked.device)
-    rays_a = _f64(lens_ops.rays_from_normalized(lens_ops.undistort_points(lens, pts_t)))
-    rays_b = _f64(lens_ops.rays_from_normalized(
-        lens_ops.undistort_points(lens, tracked.reshape(-1, 2).to(_F32)))).reshape(P, N, 3)
-    tracked_np = tracked.detach().cpu().numpy()
-    for i in range(P):
-        ts_a, ts_b = rolling_shutter_ts(
-            lens, pts, tracked_np[i], frame_ts[i], frame_ts[i + 1], height)
-        problem.set_track_result(int(frame_idx[i]), ts_a, ts_b, rays_a, rays_b[i])
+    with span("track.emit"):
+        with span("emit.lift"):
+            pts_t = torch.as_tensor(pts, dtype=_F32, device=tracked.device)
+            lifted_a = lens_ops.rays_from_normalized(lens_ops.undistort_points(lens, pts_t))
+        with span("emit.read"):
+            count("host_reads")
+            rays_a = _f64(lifted_a)
+        with span("emit.lift"):
+            lifted_b = lens_ops.rays_from_normalized(
+                lens_ops.undistort_points(lens, tracked.reshape(-1, 2).to(_F32)))
+        with span("emit.read"):
+            count("host_reads", 2)
+            rays_b = _f64(lifted_b).reshape(P, N, 3)
+            tracked_np = tracked.detach().cpu().numpy()
+        with span("emit.set"):
+            for i in range(P):
+                ts_a, ts_b = rolling_shutter_ts(
+                    lens, pts, tracked_np[i], frame_ts[i], frame_ts[i + 1], height)
+                problem.set_track_result(int(frame_idx[i]), ts_a, ts_b, rays_a, rays_b[i])
 
 
 def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
@@ -896,7 +913,12 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
     reads frames p and p + 1); None = every pair. Each range is tracked
     in blocks of `block` pairs by `lk_track_video`; a short tail block is
     filled up by repeating its last frame (those pairs are not
-    emitted), so every block has the same shape."""
+    emitted), so every block has the same shape.
+
+    Spans: `track.block` a block (count `pairs`, the pairs it emits),
+    inside it `track.slice` (the block's frames sliced and padded), the
+    tracker's `track.pyramid`, `track.coarse`, `track.lk` and
+    `track.emit`."""
     T, H, W = frames.shape
     if ranges is None:
         ranges = [(0, T - 1)]
@@ -909,11 +931,14 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
         pb, pe = max(0, int(pb)), min(T - 1, int(pe))
         for s in range(pb, pe, block):
             e = min(s + block, pe)  # pairs s .. e-1, frames s .. e
-            idx = torch.clamp(torch.arange(s, s + block + 1, device=frames.device), max=e)
-            stack = _pad_lanes(frames.index_select(0, idx), fine0)
-            tracked = lk_track_video(stack, grid_step=step, logical_hw=(H, W))
-            emit_track_block(problem, lens, pts, tracked[: e - s],
-                             np.arange(s, e), frame_ts[s : e + 1], H)
+            with span("track.block"):
+                count("pairs", e - s)
+                with span("track.slice"):
+                    idx = torch.clamp(torch.arange(s, s + block + 1, device=frames.device), max=e)
+                    stack = _pad_lanes(frames.index_select(0, idx), fine0)
+                tracked = lk_track_video(stack, grid_step=step, logical_hw=(H, W))
+                emit_track_block(problem, lens, pts, tracked[: e - s],
+                                 np.arange(s, e), frame_ts[s : e + 1], H)
 
 
 # ---------------------------------------------------------------------------
@@ -1193,8 +1218,14 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
     rssync_tpu's XLA compile warm-up (the tracker-warm thread, its
     gate, and the staging of uploaded blocks while the tracker compiles,
     RSSYNC_TRACK_MAX_STAGED) is not ported: nothing here compiles at
-    first call. RSSYNC_TRACK_TIMING=1 prints each block's decode wait,
-    host pad, upload and tracking + emission times.
+    first call.
+
+    Spans: `track.block` a block (count `pairs`, the pairs emitted in
+    it: a block emits the block TRACK_DEPTH - 1 before it, and the last
+    blocks are emitted after the feed ends, each in a `track.block` of
+    its own), inside it `track.decode_wait` (the next frames from the
+    decoder), `track.stack` (the host pad), `track.upload` (the copy to
+    `device`, enqueued) and the tracker's spans, as in `track_clip`.
     """
     dev = torch.device(device)
     if ranges is None:
@@ -1231,7 +1262,6 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
     step = grid_step or auto_grid_step(width)
     fine0 = _level_plan(auto_levels(height, width), LK_ITERS, LK_RADIUS)[2]
     Hp, Wp = _stored_dims(height, width, "fine" if fine0 else "lane")
-    timing = os.environ.get("RSSYNC_TRACK_TIMING", "") not in ("", "0")
     # one host buffer per block in flight: a block's buffer is reused
     # only after that block was drained, so its upload has finished
     pinned = dev.type == "cuda"
@@ -1242,6 +1272,7 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
 
     def drain(p):
         p_frames, tracked = p
+        count("pairs", len(p_frames) - 1)
         emit_track_block(problem, lens, pts, tracked[: len(p_frames) - 1],
                          [f.index for f in p_frames[:-1]],
                          [f.timestamp for f in p_frames], height)
@@ -1250,34 +1281,31 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
         carry: Frame | None = None
         done = False
         while not done:
-            t0 = time.perf_counter()
-            frames = [carry] if carry is not None else []
-            while len(frames) < block + 1:
-                try:
-                    frames.append(next(it))
-                except StopIteration:
-                    done = True
+            with span("track.block"):
+                with span("track.decode_wait"):
+                    frames = [carry] if carry is not None else []
+                    while len(frames) < block + 1:
+                        try:
+                            frames.append(next(it))
+                        except StopIteration:
+                            done = True
+                            break
+                if len(frames) < 2:
                     break
-            if len(frames) < 2:
-                break
-            if progress:
-                print(f"processing frames {frames[0].index}..{frames[-1].index - 1}",
-                      flush=True)
-            t1 = time.perf_counter()
-            stack_np = stack_pad_host([f.gray for f in frames], block + 1, height, width,
-                                      Hp, Wp, out=bufs[n_blocks % TRACK_DEPTH])
-            t2 = time.perf_counter()
-            stack = torch.from_numpy(stack_np).to(dev, non_blocking=True)
-            t3 = time.perf_counter()
-            pending.append((frames, lk_track_video(stack, grid_step=step,
-                                                   logical_hw=(height, width))))
-            n_blocks += 1
-            if len(pending) >= TRACK_DEPTH:
-                drain(pending.pop(0))
-            if timing:
-                print(f"# block {frames[0].index}: decode {t1 - t0:.4f} s, stack "
-                      f"{t2 - t1:.4f} s, upload {t3 - t2:.4f} s, track + emit "
-                      f"{time.perf_counter() - t3:.4f} s", flush=True)
+                if progress:
+                    print(f"processing frames {frames[0].index}..{frames[-1].index - 1}",
+                          flush=True)
+                with span("track.stack"):
+                    stack_np = stack_pad_host([f.gray for f in frames], block + 1, height,
+                                              width, Hp, Wp, out=bufs[n_blocks % TRACK_DEPTH])
+                with span("track.upload"):
+                    stack = torch.from_numpy(stack_np).to(dev, non_blocking=True)
+                pending.append((frames, lk_track_video(stack, grid_step=step,
+                                                       logical_hw=(height, width))))
+                n_blocks += 1
+                if len(pending) >= TRACK_DEPTH:
+                    drain(pending.pop(0))
             carry = frames[-1]
     for p in pending:
-        drain(p)
+        with span("track.block"):
+            drain(p)

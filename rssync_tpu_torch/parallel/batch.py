@@ -23,6 +23,7 @@ from rssync_tpu_torch.core.presync import (
 from rssync_tpu_torch.core.problem import SplineTable, TrackWindow, compute_problem
 from rssync_tpu_torch.core.ransac import guess_motion_window_batched, sample_pairs
 from rssync_tpu_torch.core.sync import SyncResult, init_motion_batched, sync_loop
+from rssync_tpu_torch.utils.timing import span
 
 
 def stack_windows(windows: Sequence[TrackWindow]) -> TrackWindow:
@@ -121,11 +122,11 @@ def batched_sync(
     motion_opt: "irls" or "lbfgs" (core/sync.py::sync_loop); rssync_tpu
     computes the same as a vmap of its sync_window. pairs: GuessMotion's
     RANSAC index pairs (r0, r1), each (W, F, SYNC_RANSAC_ITERS), in
-    place of the draw from `generator`."""
+    place of the draw from `generator`. Span `sync.init`: GuessMotion."""
     radius = torch.as_tensor(
         search_radius, dtype=initial_delays.dtype, device=initial_delays.device
     ).expand(initial_delays.shape)
-    with torch.no_grad():
+    with torch.no_grad(), span("sync.init"):
         M0, var_k = init_motion_batched(table, wins, initial_delays, generator, pairs)
     return sync_loop(table, wins, initial_delays, M0, var_k, search_centers, radius, motion_opt)
 

@@ -15,9 +15,11 @@ lens file) and prints, each once:
 - the recipe's decode ranges (the 4 windows, 248 frames) decoded by
   one `VideoSource` in order, by `FrameFeed` per range, and by
   `DecodePool` with 1, 2 and 4 workers (its first frame and all);
-- `run_recipe` with RSSYNC_TRACK_TIMING=1 (the tracking stage's
-  per-block decode wait, host pad, upload, track + emit lines) and its
-  Timings, then the same recipe again from its track cache.
+- `run_recipe` under `utils/timing.recording()`: its Timings and the
+  recording's summary (calls, total and self seconds and counts of each
+  span: the stages, the tracking stage's `track.decode_wait`,
+  `track.stack`, `track.upload`, the tracker's and emission's spans, the
+  Sync loop's), then the same recipe again from its track cache.
 
 The last line is all of it as one JSON object. Spawned decoders re-run
 the main module; this one imports nothing but the standard library at
@@ -68,6 +70,7 @@ def main() -> None:
     from rssync_tpu_torch.frontend import tracking as TR
     from rssync_tpu_torch.pipeline import recipe as RC
     from rssync_tpu_torch.testing.synthvideo import make_clip, write_clip_files
+    from rssync_tpu_torch.utils.timing import recording
 
     if not torch.cuda.is_available():
         sys.exit("profile_recipe: needs a CUDA card")
@@ -117,15 +120,19 @@ def main() -> None:
     for k, v in out.items():
         print(f"# {k}: {v}", flush=True)
 
-    os.environ["RSSYNC_TRACK_TIMING"] = "1"
     for run in ("computed", "cache_hit"):
         timings = RC.Timings()
         t0 = time.perf_counter()
-        RC.run_recipe(recipe, timings=timings, track_cache_dir=os.path.join(tmp, "cache"))
+        with recording() as rec:
+            RC.run_recipe(recipe, timings=timings, track_cache_dir=os.path.join(tmp, "cache"))
         out[f"run_recipe_{run}_s"] = time.perf_counter() - t0
         out[f"stages_{run}"] = timings.as_dict()
+        out[f"spans_{run}"] = rec.summary()
         print(f"# run_recipe ({run}): {out[f'run_recipe_{run}_s']:.3f} s", flush=True)
         print(timings.report(), flush=True)
+        for name, s in sorted(out[f"spans_{run}"].items(), key=lambda kv: -kv[1]["total_s"]):
+            print(f"# span {name}: {s['calls']} calls, {s['total_s']:.4f} s, self "
+                  f"{s['self_s']:.4f} s, counts {s['counts']}", flush=True)
     print(json.dumps(out), flush=True)
 
 

@@ -1,2 +1,2 @@
-"""Invariant guards (the reference's panic layer), stage timings and the
-track cache."""
+"""Invariant guards (the reference's panic layer), stage timings, the
+span and counter recorder, and the track cache."""

@@ -16,6 +16,7 @@ from rssync_tpu.testing.engine_problem import make_engine_problem as jmake
 from rssync_tpu_torch.core import problem as tproblem
 from rssync_tpu_torch.core import sync as tsync
 from rssync_tpu_torch.parallel.batch import stack_windows
+from rssync_tpu_torch.utils.timing import recording
 
 torch.set_num_threads(2)
 
@@ -132,8 +133,10 @@ def test_lbfgs_iterates_do_not_depend_on_check_every(scene):
 
 
 def test_lbfgs_counters_count_trips_and_evaluations(scene):
-    """LBFGS_COUNTS: one trip per loop body (the most any lane ran), one
-    evaluation at the start and one per line-search trial."""
+    """The recorder's `lbfgs.trips` / `lbfgs.evaluations` counts: one
+    trip per loop body (the most any lane ran), one evaluation at the
+    start and one per line-search trial; nothing counted outside a
+    recording."""
     jp, _, _ = scene
     P, M0, var_k, fm = _frame_problem(jp)
     calls = []
@@ -142,12 +145,18 @@ def test_lbfgs_counters_count_trips_and_evaluations(scene):
         calls.append(1)
         return tsync.frame_losses_and_grads(*(torch.as_tensor(a) for a in (P, x, var_k, fm)))
 
-    tsync.reset_lbfgs_counters()
-    res = tsync.batched_lbfgs(vg, torch.as_tensor(M0))
-    assert tsync.LBFGS_COUNTS == {"trips": int(res.iterations.max()), "evaluations": len(calls)}
-    assert len(calls) > tsync.LBFGS_COUNTS["trips"] + 1
-    tsync.reset_lbfgs_counters()
-    assert tsync.LBFGS_COUNTS == {"trips": 0, "evaluations": 0}
+    def counts(rec):
+        return {k: rec.counted(f"lbfgs.{k}") for k in ("trips", "evaluations")}
+
+    with recording() as rec:
+        res = tsync.batched_lbfgs(vg, torch.as_tensor(M0))
+    assert counts(rec) == {"trips": int(res.iterations.max()), "evaluations": len(calls)}
+    assert len(calls) > counts(rec)["trips"] + 1
+    tsync.batched_lbfgs(vg, torch.as_tensor(M0))
+    assert counts(rec)["evaluations"] == len(calls) // 2
+    with recording() as fresh:
+        pass
+    assert counts(fresh) == {"trips": 0, "evaluations": 0}
 
 
 def test_lbfgs_frozen_and_masked_lanes_keep_their_start(scene):
