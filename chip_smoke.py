@@ -48,7 +48,9 @@ Phases (any failure exits non-zero and prints no result line):
    42.3 ms, 200 Hz gyro), the pairs of its 4 syncpoint windows tracked
    in 16-pair blocks and emitted into a SyncProblem on the card, the
    gyro log integrated into it, then `run_batched`; every window within
-   0.5 ms of the truth. Then the same gyro log from files: written as a
+   0.5 ms of the truth. The tracking is recorded: emission's lift kernel
+   (csrc/lift_rays.cu) launched, 2 `lift_launches` a `track.block`.
+   Then the same gyro log from files: written as a
    .gcsv (rssync_tpu's make_clip layout) and as a GoPro GPMF MP4
    (tests/gpmf_fixture.py's writer), each read by `load_gyro` through the
    native and the Python parser (equal arrays; times and the parser that
@@ -139,7 +141,7 @@ Phases (any failure exits non-zero and prints no result line):
     debug.csv 200 rows with its minimum within 5 ms of the truth; the
     CLI's CSVs equal (a)'s and its trace blocks the Sync iterations;
     (d) bit-identical; K3 and K2 launched in (a), K1 in (a)'s debug.csv
-    and in (b);
+    and in (b); the lift kernel in (a) and (d);
 17. guess-orient on phase 16's recipe over frames (0, 60): the clip's
     orientation first, its cost under 0.9 x the runner-up's; then
     run_multi_recipes on phase 16's recipe and a second rendered clip
@@ -190,9 +192,21 @@ Phases (any failure exits non-zero and prints no result line):
     launched and bit-equal to their plain versions at every launch
     shape (the bench's own check), and every check of the bench held;
     then K1/K2/K3 against their plain versions at any launch shape no
-    earlier phase compared.
+    earlier phase compared;
+25. (run before phase 23) emission's lift kernel (`ops/lens.py::
+    lift_points`, csrc/lift_rays.cu) against its plain version
+    `lift_points_ref`: no CUDA input reached the plain version in phases
+    8-24; bit-equal at every shape phases 8-24 launched it at, in its
+    dtype and in float64, with phase 8's lens, and at 600 pixels with the
+    edge points of tests/test_torch_lift.py (the raw-zero corner, the
+    principal point, pixels far past the frame that take the safeguard)
+    for both lenses of that test in float32 and float64; then, at 130 and
+    2080 points (a block's grid and its 16 pairs), kernel and plain times
+    (events behind the 1 GiB fill) and 200 (kernel) / 5 (plain) calls
+    back to back, host included, with the bound.
 
-The second-to-last line is a JSON object describing every kernel: its
+The second-to-last line is a JSON object describing every kernel (the
+lift kernel replaces no TPU kernel: its `replaces` is null): its
 `ms`, `plain_ms`, `bound_ms` and `library_ms` are those of the heaviest
 shape its main path launched it at, and `shapes` holds the measurements
 at every shape (a row from phase 18 names the runs that launched its
@@ -285,6 +299,20 @@ STRIP_EDGES = (
     ((6, 120, 640, 1, 1163, "torch.uint8"), 93, True, False),
     ((2, 48, 384, 160, 1000, "torch.uint8"), 94, True, False),
 )
+#: phase 25: the lenses of tests/test_torch_lift.py (hero6; 640x480
+#: k1-only) with their frames, and pixels far past the frame, whose first
+#: Newton step leaves (0, pi/2) so that the safeguard halves it back
+LIFT_LENSES = (
+    (dict(ro=0.0111, fx=1186.0, fy=1190.0, cx=1355.2, cy=1020.7, k1=0.0444, k2=0.0195,
+          k3=-0.00448, k4=-0.00204), (2704, 2028)),
+    (dict(ro=0.01, fx=500.0, fy=500.0, cx=320.0, cy=240.0, k1=0.02), (640, 480)),
+)
+LIFT_FAR = ((-5000.0, -4000.0), (20000.0, 15000.0), (1e5, -3e4))
+#: the lift kernel's operations a point (csrc/lift_rays.cu, each add,
+#: multiply, divide, square root, compare, tan and cos one; no halving):
+#: 4 normalize, 4 theta_d, 9 Newton steps of 26, 4 scale, 2 products, 5
+#: raw-zero test, 8 ray
+LIFT_OPS = 261
 #: phase 20: sharded vs unsharded Sync delays on the card (ms); the split
 #: may reorder a float32 reduction, and 0.01 ms is a tenth of the
 #: card-vs-CPU limit
@@ -505,6 +533,51 @@ def compare_convert(np, torch, CV, PS, shape, dev, seed, flush):
           f"plain/.to(bfloat16) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({n_bytes / 1e6:.1f} MB)", flush=True)
     check(equal, f"u8_to_bf16 differs from its plain version at {shape}")
+    return out
+
+
+def lift_pixels(np, seed, n, lens, size):
+    """n pixels over the frame `size` and a little past it, the raw-zero
+    corner, the principal point and LIFT_FAR first (as many as fit)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-20.0, 1.0, size=(n, 2)) + rng.uniform(0.0, 1.0, size=(n, 2)) * size
+    edge = [(0.0, 0.0), (lens.cx, lens.cy), *LIFT_FAR][:n]
+    pts[: len(edge)] = edge
+    return pts
+
+
+def compare_lift(np, torch, LN, PS, plain, lens, size, shape, dtype, dev, seed, flush,
+                 timed=False):
+    """The lift kernel vs `plain` (its plain version) at one points shape
+    (..., 2) in `dtype`, on lift_pixels; with `timed`, event times behind
+    `flush`, times back to back (host included) and the bound."""
+    n = int(np.prod(shape[:-1]))
+    pts = torch.as_tensor(lift_pixels(np, seed, n, lens, size).reshape(shape), dtype=dtype,
+                          device=dev)
+    got = LN.lift_points(lens, pts)
+    want = plain(lens, pts)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    out = dict(shape=list(shape), dtype=str(dtype), bit_equal=equal,
+               max_abs_err=float((got - want).abs().max()) if n else 0.0)
+    msg = f"# lift_points {tuple(shape)} {dtype}: bit-equal {equal}"
+    if timed:
+        n_bytes = 5 * pts.element_size() * n  # points read, rays written
+        bound_ms, bound_by = bound(n_bytes, LIFT_OPS * n)
+        b2b_ms, b2b_us = PS.back_to_back(torch, lambda: LN.lift_points(lens, pts))
+        plain_b2b_ms, plain_b2b_us = PS.back_to_back(torch, lambda: plain(lens, pts), 5)
+        out.update(ms=PS.event_ms(torch, lambda: LN.lift_points(lens, pts), flush),
+                   plain_ms=PS.event_ms(torch, lambda: plain(lens, pts), flush, 5),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                   back_to_back_ms=b2b_ms, host_us=b2b_us, plain_back_to_back_ms=plain_b2b_ms,
+                   plain_host_us=plain_b2b_us)
+        msg += (f", kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms (events behind "
+                f"the fill); back to back kernel {b2b_ms:.4f} ms a call ({b2b_us:.1f} us host), "
+                f"plain {plain_b2b_ms:.4f} ms ({plain_b2b_us:.1f} us host); bound "
+                f"{bound_ms:.6f} ms ({bound_by})")
+    print(msg, flush=True)
+    check(equal, f"lift_points differs from its plain version at {tuple(shape)} {dtype} "
+                 f"(max abs err {out['max_abs_err']:.3e})")
     return out
 
 
@@ -808,8 +881,10 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
         return {**S.LAUNCHES, **ST.LAUNCHES}
 
     # (a) batched, recorded: the tracking stage's spans
+    from rssync_tpu_torch.ops import lens as LN
     from rssync_tpu_torch.utils.timing import recording
 
+    lifts = LN.LAUNCHES["lift_points"]
     zero()
     timings = Timings()
     t1 = time.perf_counter()
@@ -817,6 +892,7 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
         res_a = RC.run_recipe(recipe("a"), batched=True, timings=timings)
     t_a = time.perf_counter() - t1
     launches_a = counts()
+    lift_a, lifts = LN.LAUNCHES["lift_points"] - lifts, LN.LAUNCHES["lift_points"]
     collect_shapes(seen, "recipe (a)", S, ST)
     print(f"# (a) run_recipe batched: {t_a:.2f} s; launches {launches_a}; delays "
           f"{[round(d, 4) for d in res_a.delays_ms]} ms, truth {truth_ms:.4f} ms ({card})",
@@ -824,7 +900,7 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
     for line in timings.report().splitlines():
         print(f"#     {line}", flush=True)
     for name, s in rec.summary().items():
-        if name.startswith("track."):
+        if name.startswith(("track.", "emit.")):
             print(f"#     span {name}: {s['calls']} calls, {s['total_s']:.4f} s, self "
                   f"{s['self_s']:.4f} s, counts {s['counts']}", flush=True)
     # (b) sequential
@@ -886,6 +962,7 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
     torch.cuda.synchronize()
     t_tf = time.perf_counter() - t1
     launches_d = counts()
+    lift_d = LN.LAUNCHES["lift_points"] - lifts
     collect_shapes(seen, "recipe (d)", S, ST)
     TR.track_clip(want, lens, frames, ts, ranges)
     same = sorted(got.calls) == sorted(want.calls) == [p for b, e in ranges
@@ -901,7 +978,8 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
     decoded_ms = np.asarray(RC.run_batched(sp, res_a.syncpoints, sync_window, 1.0, True,
                                            radius_ms, step_ms))
     print(f"# (d) track_frames on {len(ranges)} windows ({len(got.calls)} pairs): {t_tf:.2f} s, "
-          f"launches {launches_d}; frame data bit-identical to track_clip on the decoded "
+          f"launches {launches_d}, lift_points {lift_d} ((a): {lift_a}); frame data "
+          f"bit-identical to track_clip on the decoded "
           f"frames: {same} ({card})", flush=True)
 
     # checks
@@ -947,6 +1025,8 @@ def recipe_phase(np, torch, dev, card, clip, phase8_ms, S, ST, TR, RC, CLI, Timi
     check(launches_a["score_quartile"] > 0, "recipe (a): K1 (debug.csv) was not launched")
     check(launches_b["score_quartile"] > 0, "recipe (b): K1 was not launched")
     check(launches_d["gather_strips"] > 0, "track_frames: K3 was not launched")
+    check(lift_a > 0, "recipe (a): the lift kernel was not launched")
+    check(lift_d > 0, "track_frames: the lift kernel was not launched")
     print("# recipe " + json.dumps({
         "card": card, "stages_a": timings.as_dict(), "stages_b": timings_b.as_dict(),
         "a_s": t_a, "b_s": t_b, "cli_s": [c[0] for c in cli], "track_frames_s": t_tf,
@@ -1351,6 +1431,7 @@ def main() -> None:
         from rssync_tpu_torch.ops import _kernels
         from rssync_tpu_torch.ops import blockcopy as BC
         from rssync_tpu_torch.ops import convert as CV
+        from rssync_tpu_torch.ops import lens as LN
         from rssync_tpu_torch.ops import patches as PT
         from rssync_tpu_torch.ops import score as S
         from rssync_tpu_torch.ops import strips as ST
@@ -1638,15 +1719,36 @@ def main() -> None:
     syncpoints = make_syncpoints({"sync_window": sync_window, "syncpoint_distance": 120},
                                  0, clip.n_frames - 1)
     check(syncpoints == [0, 120, 240, 360], f"unexpected syncpoints {syncpoints}")
+    # every CUDA input the program hands the plain lift from here to
+    # phase 25, where the count must read 0: the kernel takes them all
+    plain_lift, plain_lift_cuda = LN.lift_points_ref, [0]
+
+    def counting_plain_lift(lens, points):
+        plain_lift_cuda[0] += points.is_cuda
+        return plain_lift(lens, points)
+
+    LN.lift_points_ref = counting_plain_lift
     S.reset_launch_counters()
     ST.reset_launch_counters()
+    LN.reset_launch_counters()
     t1 = time.perf_counter()
     sp = create_sync_problem(seed=0)
     set_gyro_rates(sp, clip.gyro_ts, clip.gyro_rates, clip.orient)
-    TR.track_clip(sp, clip.lens, clip.frames, clip.frame_ts,
-                  window_pair_ranges(syncpoints, sync_window))
+    with recording() as rec:
+        TR.track_clip(sp, clip.lens, clip.frames, clip.frame_ts,
+                      window_pair_ranges(syncpoints, sync_window))
     torch.cuda.synchronize()
     t_track = time.perf_counter() - t1
+    lift_launches = LN.LAUNCHES["lift_points"]
+    blocks = rec.summary()["track.block"]["calls"]
+    emit_lens, emit_size = clip.lens, (clip.width, clip.height)
+    print(f"# end to end: lift_points launched {lift_launches} times over {blocks} track.block "
+          f"spans (recorded lift_launches {rec.counted('lift_launches')}), emit.lift "
+          f"{rec.summary()['emit.lift']['total_s']:.4f} s, shapes "
+          f"{sorted(LN.LAUNCH_SHAPES['lift_points'])}", flush=True)
+    check(lift_launches > 0, "end to end: the lift kernel was not launched")
+    check(rec.counted("lift_launches") == lift_launches == 2 * blocks,
+          "end to end: lift_launches is not 2 a track.block")
     t1 = time.perf_counter()
     e2e_ms = np.asarray(run_batched(sp, syncpoints, sync_window, 1.0, True,
                                     PRESYNC_RADIUS_MS, PRESYNC_STEP_MS))
@@ -2020,6 +2122,32 @@ def main() -> None:
                                     parent)
     phase("24 (bench.py's workload)", t0)
 
+    # -- phase 25 (before phase 23): the lift kernel against its plain
+    # version --------------------------------------------------------------
+    t0 = time.perf_counter()
+    LN.lift_points_ref = plain_lift
+    print(f"# lift_points: {plain_lift_cuda[0]} CUDA inputs reached the plain version in "
+          f"phases 8-24", flush=True)
+    check(plain_lift_cuda[0] == 0, "a CUDA input reached lift_points_ref")
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    lift_rows = []
+    for i, sh in enumerate(sorted(LN.LAUNCH_SHAPES["lift_points"])):
+        launched_dtype = getattr(torch, sh[-1].removeprefix("torch."))
+        for dt in dict.fromkeys((launched_dtype, torch.float64)):
+            row = compare_lift(np, torch, LN, PS, plain_lift, emit_lens, emit_size, sh[:-1], dt,
+                               dev, 500 + i, flush)
+            row["path"] = "phases 8-24"
+            lift_rows.append(row)
+    for j, (params, lsize) in enumerate(LIFT_LENSES):
+        for dt in (torch.float32, torch.float64):
+            lift_rows.append(compare_lift(np, torch, LN, PS, plain_lift, LN.Lens(**params), lsize,
+                                          (600, 2), dt, dev, 600 + j, flush))
+    lift_timed = [compare_lift(np, torch, LN, PS, plain_lift, emit_lens, emit_size, (n, 2),
+                               torch.float32, dev, 700 + n, flush, timed=True)
+                  for n in (130, 2080)]
+    del flush
+    phase("25 (the lift kernel vs plain)", t0)
+
     # -- phase 23: K3's profiler durations at every shape compared ---------
     t0 = time.perf_counter()
     profile_strips_rows(torch, ST, PS, dev, strip_rows + e2_rows + recipe_rows["gather_strips"]
@@ -2066,6 +2194,8 @@ def main() -> None:
          patch_paths["e3"][0], patch_rows_of("e3"), patch_rows_of("e3")),
         ("extract_patches", "experiments/mb_extract2.py:93", patch_src, h + "mb_extract2",
          patch_paths["e4"][0], patch_rows_of("e4"), patch_rows_of("e4")),
+        ("lift_points", None, csrc + "lift_rays.cu", "emission (track_clip, phase 8)",
+         lift_launches, lift_timed, lift_timed + lift_rows),
     ]
     # the TPU kernels whose port was redesigned for Hopper after its first
     # version (PERF.md §6 names the change that did it)
@@ -2084,7 +2214,8 @@ def main() -> None:
         heavy = max(main_rows, key=lambda r: r["bound_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, path=path,
-            state="ported; redesigned" if replaces in redesigned else "ported",
+            state=("added (no TPU kernel)" if replaces is None
+                   else "ported; redesigned" if replaces in redesigned else "ported"),
             launches=n, max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=heavy["ms"], plain_ms=heavy["plain_ms"], bound_ms=heavy["bound_ms"],
             bound_by=heavy["bound_by"], library_ms=heavy["library_ms"], shapes=rows,

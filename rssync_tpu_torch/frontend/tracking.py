@@ -831,10 +831,8 @@ def lk_track_video_chunked(frames: torch.Tensor, pts=None, chunk: int = 16,
 def lift_rays(lens: lens_ops.Lens, pts_a: torch.Tensor, pts_b: torch.Tensor):
     """Undistort both endpoints and lift them to unit rays
     normalize([x, y, 1]) (ref: core_testcode.cpp:147-152), on the
-    points' device."""
-    ua = lens_ops.undistort_points(lens, pts_a)
-    ub = lens_ops.undistort_points(lens, pts_b)
-    return lens_ops.rays_from_normalized(ua), lens_ops.rays_from_normalized(ub)
+    points' device (`lens_ops.lift_points`, one kernel a call on a card)."""
+    return lens_ops.lift_points(lens, pts_a), lens_ops.lift_points(lens, pts_b)
 
 
 def rolling_shutter_ts(lens: lens_ops.Lens, pts_a: np.ndarray, pts_b: np.ndarray,
@@ -876,20 +874,20 @@ def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
     frame_idx[i] + 1; frame_idx: (P,) index of each pair's first frame;
     frame_ts: (P + 1,) seconds of the P + 1 frames.
 
-    Spans: `emit.lift` around each lift as enqueued, `emit.read` around
-    the three host reads (each waits for the card), `emit.set` around the
-    host intake, all inside `track.emit`."""
+    Spans: `emit.lift` around each lift as enqueued (count
+    `lift_launches`, one a kernel launch: none on the CPU), `emit.read`
+    around the three host reads (each waits for the card), `emit.set`
+    around the host intake, all inside `track.emit`."""
     P, N = tracked.shape[:2]
     with span("track.emit"):
         with span("emit.lift"):
             pts_t = torch.as_tensor(pts, dtype=_F32, device=tracked.device)
-            lifted_a = lens_ops.rays_from_normalized(lens_ops.undistort_points(lens, pts_t))
+            lifted_a = lens_ops.lift_points(lens, pts_t)
         with span("emit.read"):
             count("host_reads")
             rays_a = _f64(lifted_a)
         with span("emit.lift"):
-            lifted_b = lens_ops.rays_from_normalized(
-                lens_ops.undistort_points(lens, tracked.reshape(-1, 2).to(_F32)))
+            lifted_b = lens_ops.lift_points(lens, tracked.reshape(-1, 2).to(_F32))
         with span("emit.read"):
             count("host_reads", 2)
             rays_b = _f64(lifted_b).reshape(P, N, 3)

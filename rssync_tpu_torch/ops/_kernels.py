@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = (
     "score_quartile.cu", "gather_strips.cu", "convert_u8.cu", "copy_block.cu",
-    "extract_patches.cu",
+    "extract_patches.cu", "lift_rays.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -172,8 +172,13 @@ def load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int),
         ]
         lib.extract_patches_kernel_attrs.restype = ctypes.c_int
+        lib.lift_rays_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_void_p,
+        ]
+        lib.lift_rays_launch.restype = ctypes.c_int
         for fn in (lib.convert_u8_bf16_error_string, lib.copy_block_error_string,
-                   lib.extract_patches_error_string):
+                   lib.extract_patches_error_string, lib.lift_rays_error_string):
             fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_char_p
         _lib = lib

@@ -10,14 +10,36 @@ moves the iterate geometrically toward the previous in-range theta, so
 Every function computes in the dtype of the points it is given, on
 their device. The lens coefficients are rounded to that dtype first,
 so float32 points see float32 coefficients, as in rssync_tpu.
+
+`lift_points` is emission's undistort and ray lift in one call: on CPU
+tensors it computes the plain version `lift_points_ref`
+(`rays_from_normalized(undistort_points(...))`); on CUDA tensors it
+launches the kernel of csrc/lift_rays.cu, one thread a point, or raises.
+The two are bit-equal on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from rssync_tpu_torch.utils.timing import count
+
+#: kernel launches, counted where the wrapper launches its kernel
+LAUNCHES = {"lift_points": 0}
+#: the (points' shape..., dtype) the kernel was launched at
+LAUNCH_SHAPES = {"lift_points": set()}
+
+
+def reset_launch_counters() -> None:
+    """Zero LAUNCHES and empty LAUNCH_SHAPES."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        LAUNCH_SHAPES[name].clear()
 
 
 @dataclass(frozen=True)
@@ -136,3 +158,69 @@ def rays_from_normalized(xy: torch.Tensor) -> torch.Tensor:
     normalize([x, y, 1]) (ref: core_testcode.cpp:147-152)."""
     v = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+def lift_points_ref(lens: Lens, points: torch.Tensor) -> torch.Tensor:
+    """Plain version of `lift_points`."""
+    return rays_from_normalized(undistort_points(lens, points))
+
+
+def kernel_constants(lens: Lens, dtype: torch.dtype) -> list[float]:
+    """The lens constants of csrc/lift_rays.cu (LensConsts' order), each
+    as `undistort_points` meets it on the card: a Python number rounded to
+    `dtype`, the derivative's products rounded once, and the division by
+    fx (fy) as a product with its reciprocal rounded in `dtype` (PyTorch on
+    CUDA divides by a Python scalar so)."""
+    def inv(v):
+        one = torch.tensor(1.0, dtype=dtype)
+        return float(one / torch.tensor(_coef(v, dtype), dtype=dtype))
+
+    k = [_coef(v, dtype) for v in (lens.k1, lens.k2, lens.k3, lens.k4)]
+    d = [_coef(m * v, dtype) for m, v in zip((3.0, 5.0, 7.0, 9.0), k)]
+    return [_coef(lens.cx, dtype), _coef(lens.cy, dtype), inv(lens.fx), inv(lens.fy), *k, *d,
+            _coef(np.pi / 2.0, dtype), _coef(np.pi / 4.0, dtype)]
+
+
+@functools.lru_cache(maxsize=16)
+def _launch_constants(lens: Lens, dtype: torch.dtype):
+    """`kernel_constants` as the launch takes them, made once a lens."""
+    return (ctypes.c_double * 14)(*kernel_constants(lens, dtype))
+
+
+def _launch(lens: Lens, points: torch.Tensor) -> torch.Tensor:
+    from rssync_tpu_torch.ops import _kernels
+
+    dev = points.device
+    if dev.type != "cuda":
+        raise ValueError(f"lift_points: unsupported device {dev}")
+    rays = torch.empty((*points.shape[:-1], 3), dtype=points.dtype, device=dev)
+    n = points.numel() // 2
+    if n == 0:
+        return rays
+    lib = _kernels.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lift_rays_launch(points.data_ptr(), rays.data_ptr(), n,
+                                  int(points.dtype == torch.float64),
+                                  _launch_constants(lens, points.dtype), stream)
+    if rc != 0:
+        raise RuntimeError(f"lift_points launch failed: {lib.lift_rays_error_string(rc).decode()}")
+    LAUNCHES["lift_points"] += 1
+    LAUNCH_SHAPES["lift_points"].add((*points.shape, str(points.dtype)))
+    count("lift_launches")
+    return rays
+
+
+def lift_points(lens: Lens, points: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) -> unit rays (..., 3): `rays_from_normalized(
+    undistort_points(lens, points))` in one call, in the points' dtype
+    (float32 or float64) on their device. The points must be contiguous."""
+    if points.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"lift_points: points must be float32 or float64, got {points.dtype}")
+    if points.dim() == 0 or points.shape[-1] != 2:
+        raise ValueError(f"lift_points: points must be (..., 2), got {tuple(points.shape)}")
+    if not points.is_contiguous():
+        raise ValueError("lift_points: points must be contiguous")
+    if points.device.type == "cpu":
+        return lift_points_ref(lens, points)
+    return _launch(lens, points)
