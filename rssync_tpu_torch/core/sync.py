@@ -17,7 +17,16 @@ src/core_support/backtrack.cpp:3-13).
     2. one Nesterov-momentum (0.3) Armijo-backtracked gradient step on
        the delay (ref :225-226, :298-305); all trials t0 * decay^k are
        evaluated in one batched call and each window keeps its first
-       accept, as the reference's sequential loop;
+       accept, as the reference's sequential loop. With "irls" the
+       momentum restarts (adaptive restart, O'Donoghue & Candes 2015)
+       when the step opposes it: IRLS moves the directions of frames
+       that barely translate by degrees from trip to trip (14 of a
+       window's 61 frames by 1-9 degrees a trip, at 30 fps under pure
+       rotation), the delay's loss changes under the step, and the
+       reference's momentum then locked into a 4-trip cycle (steps of
+       +-1.1 ms and +-0.01 ms) until the outer cap; "lbfgs", whose
+       iterates match the reference's, never cycled there and keeps the
+       reference's step exactly;
     3. a window stops after 6 consecutive steps < 1e-4 or when its delay
        leaves search_center +- search_radius (ref :316-328).
 
@@ -498,7 +507,10 @@ def sync_loop(
                 step = _backtrack_step(
                     lambda x: window_loss(table, wins, x, M_new, var_k), x0, fval, grad
                 )
-                v_new = DELAY_MOMENTUM * v + step
+                if motion_opt == "irls":  # momentum restart, see the module docstring
+                    v_new = DELAY_MOMENTUM * torch.where(step * v < 0.0, 0.0, v) + step
+                else:
+                    v_new = DELAY_MOMENTUM * v + step
                 delay_new = delay + v_new
                 cc_new = torch.where(torch.abs(step) < CONVERGE_STEP, cc + 1, 0)
                 done_new = (cc_new > CONVERGE_COUNT) | (torch.abs(delay_new - centers) > radius)

@@ -58,7 +58,7 @@ from rssync_tpu_torch.ops.strips import (
     gather_strips,
     strip_path_ok,
 )
-from rssync_tpu_torch.utils.timing import count, span
+from rssync_tpu_torch.utils.timing import count, recording_on, span
 
 LK_RADIUS = 10  # 21x21 window
 LK_ITERS = 10  # API default; the schedule runs fewer per level (_fine_plan)
@@ -80,6 +80,10 @@ STRIP_PAD = 24
 
 #: frame pairs per tracking launch
 TRACK_BLOCK = 16
+
+#: pyramid depth from which `_fine_plan` takes the deep plan (frames of
+#: ~1500 px and up)
+DEEP_LEVELS = 7
 
 _F32 = torch.float32
 
@@ -409,21 +413,26 @@ def _lk_templates(img_a: torch.Tensor, pts_level, radius: int) -> dict:
 
 
 def _lk_level(img_a, img_b, pts_level, guess, radius: int, iters: int,
-              margin: int) -> torch.Tensor:
+              margin: int, edges: bool = False):
     """One pyramid level of iterative LK for all (pair, point).
     img_a/img_b: (B, H, Wp) lane-padded level images; pts_level (N, 2)
     or (B, N, 2) at this level's scale; guess (B, N, 2) incoming
-    displacement. Returns (B, N, 2)."""
+    displacement. Returns (B, N, 2) (and, with edges, `_lk_iterate`'s
+    edge counts)."""
     tmpl = _lk_templates(img_a, pts_level, radius)
-    return _lk_iterate(img_b, pts_level, guess, tmpl, radius, iters, margin)
+    return _lk_iterate(img_b, pts_level, guess, tmpl, radius, iters, margin, edges=edges)
 
 
 def _lk_iterate(img_b, pts_level, guess, tmpl, radius: int, iters: int,
-                margin: int, fidx: torch.Tensor | None = None) -> torch.Tensor:
+                margin: int, fidx: torch.Tensor | None = None, edges: bool = False):
     """The img_b half of an LK level: fetch each point's search region
     once, then `iters` Gauss-Newton steps against the templates `tmpl`
     (from _lk_templates; its B axis matches guess's). With fidx (B,)
-    int32, img_b holds a whole clip and pair b searches frame fidx[b]."""
+    int32, img_b holds a whole clip and pair b searches frame fidx[b].
+
+    Returns (B, N, 2); with edges, also (B,) int64: the points of each
+    pair whose iterate ended within 1 px of the +-(margin - 1) px it may
+    wander from the incoming guess (the search ran out of room)."""
     w = 2 * radius + 1
     B = guess.shape[0]
     dev = guess.device
@@ -487,6 +496,9 @@ def _lk_iterate(img_b, pts_level, guess, tmpl, radius: int, iters: int,
         step = torch.stack([du, dv], dim=-1)
         step = torch.where(inv_ok[..., None], step, torch.zeros_like(step))
         d_rel = torch.clamp(d_rel - step, -(M - 1.0), M - 1.0)
+    if edges:
+        at_edge = torch.amax(torch.abs(d_rel), dim=-1) > M - 2.0
+        return guess + d_rel, torch.sum(at_edge, dim=-1)
     return guess + d_rel
 
 
@@ -494,37 +506,55 @@ def _lk_iterate(img_b, pts_level, guess, tmpl, radius: int, iters: int,
 # coarse stage: global SAD shift + local cost volume
 
 
+def _windows(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Every shifted (h, w) window of x (..., h + 2D, w + 2D), as a view
+    (..., 2D+1, 2D+1, h, w): [..., dy, dx, :, :] = x[..., dy : dy + h,
+    dx : dx + w]. One view in place of a slice a shift: the shifted
+    differences then take one launch, not one a shift."""
+    return x.unfold(-2, h, 1).unfold(-2, w, 1)
+
+
 def _global_shift(a: torch.Tensor, b: torch.Tensor, D: int) -> torch.Tensor:
     """Integer global translation per pair by full-image SAD argmin over
     (2D+1)^2 shifts. a, b: (B, h, w) float32. Returns (B, 2) float32 xy
     flow (b ~ a shifted BY the flow)."""
     B, h, w = a.shape
-    pb = _edge_pad(b, D, D, D, D)
-    sads = torch.stack(
-        [
-            torch.mean(torch.abs(a - pb[:, dy : dy + h, dx : dx + w]), dim=(-2, -1))
-            for dy in range(2 * D + 1)
-            for dx in range(2 * D + 1)
-        ],
-        dim=-1,
-    )  # (B, (2D+1)^2); shift (dy, dx) tests flow (dx - D, dy - D)
-    best = torch.argmin(sads, dim=-1)
-    gy = torch.div(best, 2 * D + 1, rounding_mode="floor") - D
-    gx = best % (2 * D + 1) - D
+    K = 2 * D + 1
+    # (B, K, K, h, w); shift (dy, dx) tests flow (dx - D, dy - D)
+    diff = torch.abs(a[:, None, None] - _windows(_edge_pad(b, D, D, D, D), h, w))
+    best = torch.argmin(torch.mean(diff, dim=(-2, -1)).reshape(B, K * K), dim=-1)
+    gy = torch.div(best, K, rounding_mode="floor") - D
+    gx = best % K - D
     return torch.stack([gx, gy], dim=-1).to(_F32)
 
 
 def _coarse_init(pairs: dict, lvl_vol: int, lvl_glob: int, pts,
-                 D_glob: int) -> torch.Tensor:
+                 D_glob: int, glob_hw: tuple[int, int] | None = None) -> torch.Tensor:
     """Per-point flow init (level-0 px) from the coarse stage.
 
     pairs: {level: (a, b)} of (B, h, w) level images (u8 or float) for
     the two coarse levels. pts: (N, 2) level-0 xy (numpy or tensor).
-    Returns (B, N, 2) float32."""
-    a_g, b_g = pairs[lvl_glob]
-    g = _global_shift(a_g.to(_F32), b_g.to(_F32), D_glob)  # (B, 2) at lvl_glob
+    glob_hw: the global level's own (h, w) when its images carry
+    storage padding; the global shift then compares only those pixels
+    (`_lk_core` passes it in the deep plan).
 
-    a, b = pairs[lvl_vol]
+    Spans: `coarse.global` (the global shift) and `coarse.volume` (the
+    cost volume and the sample at the points). Returns (B, N, 2)
+    float32."""
+    a_g, b_g = pairs[lvl_glob]
+    if glob_hw is not None:
+        a_g, b_g = a_g[:, : glob_hw[0], : glob_hw[1]], b_g[:, : glob_hw[0], : glob_hw[1]]
+    with span("coarse.global"):
+        g = _global_shift(a_g.to(_F32), b_g.to(_F32), D_glob)  # (B, 2) at lvl_glob
+    with span("coarse.volume"):
+        return _volume_flow(pairs[lvl_vol], g, lvl_vol, lvl_glob, pts, D_glob)
+
+
+def _volume_flow(pair: tuple, g: torch.Tensor, lvl_vol: int, lvl_glob: int, pts,
+                 D_glob: int) -> torch.Tensor:
+    """`_coarse_init`'s cost volume at lvl_vol around the global shift g
+    (B, 2) at lvl_glob, sampled at pts: (B, N, 2) level-0 px."""
+    a, b = pair
     B, h, w = a.shape
     dev = a.device
     scale_gl = float(2 ** (lvl_glob - lvl_vol))
@@ -545,19 +575,11 @@ def _coarse_init(pairs: dict, lvl_vol: int, lvl_glob: int, pts,
         av, b0v = a.to(torch.int16), b0.to(torch.int16)
     D = VOL_D
     K = 2 * D + 1
-    pb0 = _edge_pad(b0v, D, D, D, D)
-    vol = torch.stack(
-        [
-            torch.abs(av - pb0[:, dy : dy + h, dx : dx + w])
-            for dy in range(K)
-            for dx in range(K)
-        ],
-        dim=1,
-    )  # (B, K*K, h, w)
+    shifted = _windows(_edge_pad(b0v, D, D, D, D), h, w)  # (B, K, K, h, w)
+    vol = torch.abs(av[:, None, None] - shifted).reshape(B, K * K, h, w)
     vp = _edge_pad(vol, VOL_BOX, VOL_BOX, VOL_BOX, VOL_BOX)
     r = sum(vp[:, :, i : i + h, :] for i in range(2 * VOL_BOX + 1))
     cost = sum(r[:, :, :, i : i + w] for i in range(2 * VOL_BOX + 1))
-
     best = torch.argmin(cost, dim=1)  # (B, h, w) in [0, K*K), first minimum
     # clamp the argmin one cell into the interior so the parabola's
     # neighbours exist, then read the 5-point stencil
@@ -618,7 +640,7 @@ def _fine_plan(levels: int, iters: int, radius: int) -> list[tuple[int, int, int
     (>= 7 levels, frames of ~1500 px and up) skip the intermediate level
     and enter with a small window; small frames keep 3 levels."""
     n_fine = min(3, levels)
-    if n_fine >= 3 and levels >= 7:
+    if n_fine >= 3 and levels >= DEEP_LEVELS:
         return [
             (2, 2, MARGIN_ENTRY, min(radius, 6)),
             (0, min(iters, 4), MARGIN_FINE + 1, radius),
@@ -638,14 +660,22 @@ def _fine_plan(levels: int, iters: int, radius: int) -> list[tuple[int, int, int
 
 
 def _lk_core(pyr_pairs: dict, pts, levels: int, radius: int, iters: int,
-             level0: tuple | None = None) -> torch.Tensor:
+             level0: tuple | None = None, logical_hw: tuple[int, int] | None = None,
+             edges: bool = False):
     """Tracker body over per-level (img_a, img_b) batches, keyed by level
     (only the levels of `_needed_levels` exist). pts: (N, 2) host float32
     grid (static templates) or a tensor. level0: (clip, templates,
     fidx): level 0 then searches the whole storage-padded clip at
     per-pair frame indices against templates made beforehand (the
-    hybrid structure), and pyr_pairs needs no level 0. Returns (B, N, 2)
-    positions."""
+    hybrid structure), and pyr_pairs needs no level 0. logical_hw: the
+    level-0 (H, W) the levels were built from. In the deep plan the
+    global shift then compares the coarsest level's own pixels only: at
+    2704x2028 that level is 16 x 21 px stored 16 x 128, and over the
+    107 columns of edge padding the SAD picked shifts a level-7 px or
+    more off under 30 fps motion, out of the cost volume's reach. The
+    smaller plans keep rssync_tpu's SAD over the stored level. Returns
+    (B, N, 2) positions; with edges, also the entry level's (B,) edge
+    counts (`_lk_iterate`)."""
     plan = _fine_plan(levels, iters, radius)
     entry = plan[0][0]
     ref = level0[2] if level0 is not None else pyr_pairs[entry][0]
@@ -657,23 +687,32 @@ def _lk_core(pyr_pairs: dict, pts, levels: int, radius: int, iters: int,
         pairs = {lvl: pyr_pairs[lvl] for lvl in {lvl_glob, lvl_vol}}
         hg = pyr_pairs[lvl_glob][0].shape[-2:]
         D_glob = max(2, min(hg) // 3)
+        glob_hw = None
+        if logical_hw is not None and levels >= DEEP_LEVELS:
+            glob_hw = tuple(_lvl_size(n, 0, lvl_glob) for n in logical_hw)
         with span("track.coarse"):
-            d = _coarse_init(pairs, lvl_vol, lvl_glob, pts, D_glob)
+            d = _coarse_init(pairs, lvl_vol, lvl_glob, pts, D_glob, glob_hw)
     else:
         d = torch.zeros((B, *pts.shape), dtype=_F32, device=dev)
 
+    edge = None
     with span("track.lk"):
         for lvl, it_l, m_l, r_l in plan:
+            want_edge = edges and lvl == entry
             if lvl == 0 and level0 is not None:
                 clip, tmpl, fidx = level0
-                d = _lk_iterate(clip, pts, d, tmpl, r_l, it_l, m_l, fidx=fidx)
+                out = _lk_iterate(clip, pts, d, tmpl, r_l, it_l, m_l, fidx=fidx, edges=want_edge)
+                d, edge = out if want_edge else (out, edge)
                 continue
             scale = float(2**lvl)
-            d = _lk_level(
+            out = _lk_level(
                 pyr_pairs[lvl][0], pyr_pairs[lvl][1], pts / scale, d / scale,
-                r_l, it_l, m_l,
-            ) * scale
-        return torch.as_tensor(pts, dtype=_F32, device=dev)[None] + d
+                r_l, it_l, m_l, edges=want_edge,
+            )
+            d, edge = out if want_edge else (out, edge)
+            d = d * scale
+        pos = torch.as_tensor(pts, dtype=_F32, device=dev)[None] + d
+        return (pos, edge) if edges else pos
 
 
 def _level_plan(levels: int, iters: int, radius: int):
@@ -690,15 +729,16 @@ def _lk_pairs_core(imgs_a, imgs_b, pts, levels: int, radius: int, iters: int) ->
     with span("track.pyramid"):
         pyr_a = build_pyramid_sparse(_pad_lanes(imgs_a, fine0), levels, need, hw, plan)
         pyr_b = build_pyramid_sparse(_pad_lanes(imgs_b, fine0), levels, need, hw, plan)
-    return _lk_core({l: (pyr_a[l], pyr_b[l]) for l in need}, pts, levels, radius, iters)
+    return _lk_core({l: (pyr_a[l], pyr_b[l]) for l in need}, pts, levels, radius, iters,
+                    logical_hw=hw)
 
 
 def _lk_video_core(frames, pts, levels: int, radius: int, iters: int,
-                   logical_hw: tuple[int, int] | None = None) -> torch.Tensor:
+                   logical_hw: tuple[int, int] | None = None, edges: bool = False):
     """Track consecutive pairs of a frame block with one pyramid per
     frame (each interior frame serves two pairs). logical_hw: the
     unpadded (H, W) when `frames` already carry the level-0 storage
-    padding; otherwise frames are padded here."""
+    padding; otherwise frames are padded here. edges: as `_lk_core`."""
     need, plan, fine0 = _level_plan(levels, iters, radius)
     if logical_hw is None:
         logical_hw = tuple(frames.shape[-2:])
@@ -706,7 +746,7 @@ def _lk_video_core(frames, pts, levels: int, radius: int, iters: int,
     with span("track.pyramid"):
         pyr = build_pyramid_sparse(frames, levels, need, logical_hw, plan)
     pairs = {l: (pyr[l][:-1], pyr[l][1:]) for l in need}
-    return _lk_core(pairs, pts, levels, radius, iters)
+    return _lk_core(pairs, pts, levels, radius, iters, logical_hw=logical_hw, edges=edges)
 
 
 def _check_prepadded(frames, logical_hw, levels, radius, iters) -> None:
@@ -755,18 +795,21 @@ def lk_track_pairs(imgs_a: torch.Tensor, imgs_b: torch.Tensor, pts,
 def lk_track_video(frames: torch.Tensor, pts=None, levels: int | None = None,
                    radius: int = LK_RADIUS, iters: int = LK_ITERS,
                    grid_step: int | None = None,
-                   logical_hw: tuple[int, int] | None = None) -> torch.Tensor:
+                   logical_hw: tuple[int, int] | None = None, edges: bool = False):
     """Track one point set across all consecutive pairs of a frame block:
     (T, H, W) -> (T-1, N, 2). pts=None takes the reference grid
     (grid_step, by default from the width). logical_hw: the unpadded
-    (H, W) when frames are pre-padded (pad_frames_host)."""
+    (H, W) when frames are pre-padded (pad_frames_host). With edges,
+    returns (tracks, (T-1,) int64 counts of each pair's points whose
+    entry-level LK iterate ended within 1 px of its margin), the counts
+    left on the device."""
     H, W = logical_hw if logical_hw is not None else frames.shape[1:3]
     if levels is None:
         levels = auto_levels(H, W)
     if logical_hw is not None:
         _check_prepadded(frames, logical_hw, levels, radius, iters)
     return _lk_video_core(frames, _host_grid(pts, W, H, grid_step), levels, radius,
-                          iters, logical_hw=logical_hw)
+                          iters, logical_hw=logical_hw, edges=edges)
 
 
 def lk_track_video_chunked(frames: torch.Tensor, pts=None, chunk: int = 16,
@@ -813,7 +856,8 @@ def lk_track_video_chunked(frames: torch.Tensor, pts=None, chunk: int = 16,
                      for lvl in small}
             tmpl = {k: v[s : s + chunk] for k, v in tmpl0.items()}
             fidx = torch.arange(s + 1, s + 1 + chunk, dtype=torch.int32, device=frames.device)
-            outs.append(_lk_core(pairs, pts, levels, radius, iters, (frames, tmpl, fidx)))
+            outs.append(_lk_core(pairs, pts, levels, radius, iters, (frames, tmpl, fidx),
+                                 logical_hw=(H, W)))
     else:
         outs = [
             _lk_video_core(frames[s : s + chunk + 1], pts, levels, radius, iters,
@@ -866,13 +910,17 @@ def emit_track_result(problem, lens: lens_ops.Lens, pts: np.ndarray,
 
 
 def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
-                     tracked: torch.Tensor, frame_idx, frame_ts, height: int) -> None:
+                     tracked: torch.Tensor, frame_idx, frame_ts, height: int,
+                     edge_points: torch.Tensor | None = None) -> int | None:
     """Feed a block of P consecutive pairs into `problem`: the grid's
     rays are lifted once, the tracked endpoints of all pairs in one call
     (undistortion is elementwise, so each pair's rays equal
     `emit_track_result`'s). tracked: (P, N, 2) positions in frames
     frame_idx[i] + 1; frame_idx: (P,) index of each pair's first frame;
-    frame_ts: (P + 1,) seconds of the P + 1 frames.
+    frame_ts: (P + 1,) seconds of the P + 1 frames. edge_points: the
+    pairs' (P,) device counts of `lk_track_video(edges=True)`, read in
+    the one transfer of the tracked points; returns their sum (None
+    without them).
 
     Spans: `emit.lift` around each lift as enqueued (count
     `lift_launches`, one a kernel launch: none on the CPU), `emit.read`
@@ -891,12 +939,20 @@ def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
         with span("emit.read"):
             count("host_reads", 2)
             rays_b = _f64(lifted_b).reshape(P, N, 3)
-            tracked_np = tracked.detach().cpu().numpy()
+            n_edge = None
+            if edge_points is None:
+                tracked_np = tracked.detach().cpu().numpy()
+            else:  # counts < 2^24 ride exactly as float32 behind the points
+                flat = torch.cat([tracked.detach().reshape(-1).to(_F32),
+                                  edge_points.to(_F32)]).cpu().numpy()
+                tracked_np = flat[: P * N * 2].reshape(P, N, 2)
+                n_edge = int(flat[P * N * 2 :].sum())
         with span("emit.set"):
             for i in range(P):
                 ts_a, ts_b = rolling_shutter_ts(
                     lens, pts, tracked_np[i], frame_ts[i], frame_ts[i + 1], height)
                 problem.set_track_result(int(frame_idx[i]), ts_a, ts_b, rays_a, rays_b[i])
+    return n_edge
 
 
 def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
@@ -913,9 +969,12 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
     filled up by repeating its last frame (those pairs are not
     emitted), so every block has the same shape.
 
-    Spans: `track.block` a block (count `pairs`, the pairs it emits),
-    inside it `track.slice` (the block's frames sliced and padded), the
-    tracker's `track.pyramid`, `track.coarse`, `track.lk` and
+    Spans: `track.block` a block (count `pairs`, the pairs it emits, and
+    while recording `lk_edge_points`, their points whose entry-level LK
+    iterate ended within 1 px of its margin: counted on the card, read
+    with the tracked points), inside it `track.slice` (the block's
+    frames sliced and padded), the tracker's `track.pyramid`,
+    `track.coarse` (> `coarse.global`, `coarse.volume`), `track.lk` and
     `track.emit`."""
     T, H, W = frames.shape
     if ranges is None:
@@ -934,9 +993,15 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
                 with span("track.slice"):
                     idx = torch.clamp(torch.arange(s, s + block + 1, device=frames.device), max=e)
                     stack = _pad_lanes(frames.index_select(0, idx), fine0)
-                tracked = lk_track_video(stack, grid_step=step, logical_hw=(H, W))
-                emit_track_block(problem, lens, pts, tracked[: e - s],
-                                 np.arange(s, e), frame_ts[s : e + 1], H)
+                edges = recording_on()
+                out = lk_track_video(stack, grid_step=step, logical_hw=(H, W), edges=edges)
+                tracked, edge = out if edges else (out, None)
+                args = (problem, lens, pts, tracked[: e - s], np.arange(s, e),
+                        frame_ts[s : e + 1], H)
+                if edge is None:
+                    emit_track_block(*args)
+                else:
+                    count("lk_edge_points", emit_track_block(*args, edge_points=edge[: e - s]))
 
 
 # ---------------------------------------------------------------------------
@@ -1218,10 +1283,10 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
     RSSYNC_TRACK_MAX_STAGED) is not ported: nothing here compiles at
     first call.
 
-    Spans: `track.block` a block (count `pairs`, the pairs emitted in
-    it: a block emits the block TRACK_DEPTH - 1 before it, and the last
-    blocks are emitted after the feed ends, each in a `track.block` of
-    its own), inside it `track.decode_wait` (the next frames from the
+    Spans: `track.block` a block (counts `pairs` and, while recording,
+    `lk_edge_points`, of the pairs emitted in it: a block emits the
+    block TRACK_DEPTH - 1 before it, and the last blocks are emitted
+    after the feed ends, each in a `track.block` of its own), inside it `track.decode_wait` (the next frames from the
     decoder), `track.stack` (the host pad), `track.upload` (the copy to
     `device`, enqueued) and the tracker's spans, as in `track_clip`.
     """
@@ -1265,15 +1330,19 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
     pinned = dev.type == "cuda"
     bufs = [torch.empty((block + 1, Hp, Wp), dtype=torch.uint8, pin_memory=pinned).numpy()
             for _ in range(TRACK_DEPTH)]
-    pending: list[tuple[list[Frame], torch.Tensor]] = []
+    pending: list[tuple[list[Frame], torch.Tensor, torch.Tensor | None]] = []
     n_blocks = 0
 
     def drain(p):
-        p_frames, tracked = p
-        count("pairs", len(p_frames) - 1)
-        emit_track_block(problem, lens, pts, tracked[: len(p_frames) - 1],
-                         [f.index for f in p_frames[:-1]],
-                         [f.timestamp for f in p_frames], height)
+        p_frames, tracked, edge = p
+        n = len(p_frames) - 1
+        count("pairs", n)
+        args = (problem, lens, pts, tracked[:n], [f.index for f in p_frames[:-1]],
+                [f.timestamp for f in p_frames], height)
+        if edge is None:
+            emit_track_block(*args)
+        else:
+            count("lk_edge_points", emit_track_block(*args, edge_points=edge[:n]))
 
     for (pb, pe), it in zip(ranges, _range_feeds(video_path, ranges)):
         carry: Frame | None = None
@@ -1298,8 +1367,10 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
                                               width, Hp, Wp, out=bufs[n_blocks % TRACK_DEPTH])
                 with span("track.upload"):
                     stack = torch.from_numpy(stack_np).to(dev, non_blocking=True)
-                pending.append((frames, lk_track_video(stack, grid_step=step,
-                                                       logical_hw=(height, width))))
+                edges = recording_on()
+                out = lk_track_video(stack, grid_step=step, logical_hw=(height, width),
+                                     edges=edges)
+                pending.append((frames, *(out if edges else (out, None))))
                 n_blocks += 1
                 if len(pending) >= TRACK_DEPTH:
                     drain(pending.pop(0))

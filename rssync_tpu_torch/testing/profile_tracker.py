@@ -72,10 +72,11 @@ def main() -> int:
     pairs = {l: (pyr[l][:-1], pyr[l][1:]) for l in need}
     D_glob = max(2, min(pairs[lvl_glob][0].shape[-2:]) // 3)
     coarse = {l: pairs[l] for l in (lvl_vol, lvl_glob)}
-    d0 = TR._coarse_init(coarse, lvl_vol, lvl_glob, pts, D_glob)
+    glob_hw = tuple(TR._lvl_size(n, 0, lvl_glob) for n in (H, W))  # the deep plan's
+    d0 = TR._coarse_init(coarse, lvl_vol, lvl_glob, pts, D_glob, glob_hw)
     stages = {
         "pyramid": lambda: TR.build_pyramid_sparse(frames, levels, need, (H, W), plan),
-        "coarse_init": lambda: TR._coarse_init(coarse, lvl_vol, lvl_glob, pts, D_glob),
+        "coarse_init": lambda: TR._coarse_init(coarse, lvl_vol, lvl_glob, pts, D_glob, glob_hw),
     }
     d = d0
     for lvl, it, margin, radius in fine:

@@ -180,6 +180,12 @@ def span(name: str):
     return _Span(rec, name)
 
 
+def recording_on() -> bool:
+    """Whether a `recording()` is open: work done only to feed a count
+    (and never to compute a result) runs only then."""
+    return _active is not None
+
+
 def count(name: str, n: int = 1) -> None:
     """Add `n` to count `name` of the innermost open span of this thread
     (of the recorder, with none open) while a `recording()` is open."""

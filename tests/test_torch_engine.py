@@ -275,3 +275,44 @@ def test_port_imports_neither_jax_nor_rssync_tpu(tmp_path):
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_sync_does_not_cycle_on_30fps_tracks():
+    """A bad draw, replayed on the CPU: the tracks the tracker emitted on
+    an H100 for window 0 of hero6-30.clip's clip at seed 2200000311
+    (tests/data/hero6_30fps_2200000311_window0.npz: its 61 pairs' tracked
+    rays and rows, the grid's rays), the clip's gyro log, and the
+    problem of seed 1000. Without the IRLS momentum restart
+    (core/sync.py), pass 0 ran its 400 outer trips here, the delay and
+    14 frames' directions in a 4-trip cycle (steps of +-1.1 ms and +-0.01
+    ms), 0.3-0.8 ms off the scene's delay; with it every pass stops in a
+    few trips."""
+    import json
+
+    from portbench import harness
+    from portbench.reference import truth
+    from rssync_tpu_torch.frontend.tracking import grid_points, rolling_shutter_ts
+    from rssync_tpu_torch.ops.lens import Lens
+    from rssync_tpu_torch.pipeline.recipe import set_gyro_rates
+
+    root = Path(__file__).resolve().parent
+    cfg = json.loads((root.parent / "portbench/configs/hero6_2704x2028_30fps.json").read_text())
+    clip = harness.make_clip(cfg, 2200000311, "cpu", render=False)
+    data = np.load(root / "data/hero6_30fps_2200000311_window0.npz")
+    lens, H = Lens(**vars(clip.lens)), clip.height
+    grid = grid_points(clip.width, H, 200)
+    rays_a = data["rays_a"].astype(np.float64)
+    sp = create_sync_problem(seed=1000, device="cpu")
+    set_gyro_rates(sp, clip.gyro_ts, clip.gyro_rates, "xyz")
+    for i, (rays_b, rows_b) in enumerate(zip(data["rays_b"], data["rows_b"])):
+        tracked = np.stack([np.zeros_like(rows_b), rows_b], axis=-1)  # only rows set times
+        ts_a, ts_b = rolling_shutter_ts(lens, grid, tracked, clip.frame_ts[i],
+                                        clip.frame_ts[i + 1], H)
+        sp.set_track_result(i, ts_a, ts_b, rays_a, rays_b.astype(np.float64))
+    open_w, closed_w = syncpoint_windows(sp, [0], 60)
+    pre = presync_stage(sp, open_w, clip.initial_delay, 200.0, 2.0)
+    res = sync_stage(sp, closed_w, pre, clip.initial_delay, 0.2)
+    want = float(truth.window_delays(clip.syncpoints[:1], clip.fps, 60, clip.engine_delay,
+                                     clip.drift)[0])
+    assert [int(r.iterations[0]) < 50 for r in res] == [True] * SYNC_PASSES
+    assert abs(float(res[-1].delay[0]) - want) < 1e-4

@@ -14,6 +14,7 @@ import torch
 from rssync_tpu_torch.core.problem import build_track_window, make_spline_table
 from rssync_tpu_torch.frontend import decode_pool as tdp
 from rssync_tpu_torch.frontend import tracking as T
+from rssync_tpu_torch.ops import lens as tlens
 from rssync_tpu_torch.parallel import batch as B
 from rssync_tpu_torch.testing.synthvideo import make_clip, write_clip_files
 from rssync_tpu_torch.utils import timing
@@ -181,7 +182,8 @@ def test_track_clip_spans_and_tracks_bit_equal(clip):
 
     blocks = sorted((r for r in rec.records if r.name == "track.block"),
                     key=lambda r: r.start_ns)
-    assert [b.counts for b in blocks] == [{"pairs": 3}, {"pairs": 4}, {"pairs": 1}]
+    # the clip's small motion leaves no point at its LK margin
+    assert [b.counts for b in blocks] == [{"pairs": n, "lk_edge_points": 0} for n in (3, 4, 1)]
     assert all(r.context == 3 for r in rec.records)
     for b in blocks:
         assert b.parent is None
@@ -206,11 +208,96 @@ def test_track_frames_spans(clip, tmp_path, monkeypatch):
     for name in ("track.decode_wait", "track.stack", "track.upload", "track.pyramid",
                  "track.lk", "track.emit"):
         assert s[name]["calls"] >= 3, name
-    assert s["track.block"]["counts"] == {"pairs": 9} == {"pairs": len(got.calls)}
+    assert s["track.block"]["counts"] == {"pairs": 9, "lk_edge_points": 0}
+    assert len(got.calls) == 9
     by_id = {r.id: r for r in rec.records}
     for r in rec.records:
         if r.name in ("track.decode_wait", "track.stack", "track.upload", "track.emit"):
             assert by_id[r.parent].name == "track.block"
+
+
+def test_coarse_stage_spans_nest_under_track_coarse(clip):
+    """The coarse stage's two steps are children of `track.coarse`, in
+    order; the LK levels open no span of their own."""
+    with recording() as rec:
+        T.track_clip(_Problem(), clip.lens, clip.frames, clip.frame_ts, RANGES, block=BLOCK)
+    coarse = [r for r in rec.records if r.name == "track.coarse"]
+    assert len(coarse) == 3
+    for c in coarse:
+        kids = _children(rec, c.id)
+        assert [k.name for k in kids] == ["coarse.global", "coarse.volume"]
+        assert all(c.start_ns <= k.start_ns <= k.end_ns <= c.end_ns for k in kids)
+    assert all(not _children(rec, r.id) for r in rec.records if r.name == "track.lk")
+
+
+def _smooth_texture(shape, seed):
+    """Texture smooth enough at the entry level (sigma 16 px) for LK to
+    run far from its guess."""
+    from scipy.ndimage import gaussian_filter
+
+    img = gaussian_filter(np.random.default_rng(seed).normal(size=shape), 16.0)
+    return (img - img.min()) * 255.0 / (img.max() - img.min())
+
+
+def test_lk_edge_points_equal_a_direct_count_and_reads_stay_three(clip, monkeypatch):
+    """`lk_edge_points` on each track.block is the count, over the pairs
+    it emits, of points whose entry-level LK iterate ended more than
+    margin - 2 px from its guess, taken directly from the iterates: here
+    a textured pair moved (3, -2) px, with the coarse stage's guess put
+    30 px (7.5 entry-level px) off for every other point, so LK runs to
+    its margin there. The count rides on the tracked points' read: 3
+    host reads a block."""
+    img = _smooth_texture((300, 380), 4)
+    a, b = img[20:260, 20:340], img[22:262, 17:337]  # b(x) = a(x - (3, -2))
+    frames = torch.as_tensor(np.stack([a, b] * 5).round().astype(np.uint8))
+    orig_coarse, orig_iter = T._coarse_init, T._lk_iterate
+
+    def off_coarse(*args, **kw):
+        d = orig_coarse(*args, **kw).clone()
+        d[:, ::2, 0] += 30.0
+        return d
+
+    direct = []
+
+    def spy(img_b, pts_level, guess, tmpl, radius, iters, margin, fidx=None, edges=False):
+        out = orig_iter(img_b, pts_level, guess, tmpl, radius, iters, margin, fidx=fidx,
+                        edges=edges)
+        if edges:
+            rel = out[0] - guess
+            direct.append(torch.sum(torch.amax(torch.abs(rel), dim=-1) > margin - 2.0, dim=-1))
+        return out
+
+    monkeypatch.setattr(T, "_coarse_init", off_coarse)
+    monkeypatch.setattr(T, "_lk_iterate", spy)
+    with recording() as rec:
+        T.track_clip(_Problem(), clip.lens, frames, np.arange(10) / 30.0, RANGES, block=BLOCK)
+    blocks = sorted((r for r in rec.records if r.name == "track.block"),
+                    key=lambda r: r.start_ns)
+    assert len(direct) == len(blocks) == 3
+    want = [int(d[: blk.counts["pairs"]].sum()) for d, blk in zip(direct, blocks)]
+    assert [blk.counts["lk_edge_points"] for blk in blocks] == want
+    assert min(want) > 0  # up to half of each pair's 35 points
+    for blk in blocks:
+        reads = [r for r in rec.records if r.counts.get("host_reads")]
+        assert sum(r.counts["host_reads"] for r in reads
+                   if blk.start_ns <= r.start_ns <= blk.end_ns) == 3
+
+
+def test_lk_edge_points_read_0_on_a_60fps_pair():
+    """One of the fastest pairs of hero6-60.clip's scene (seed
+    2200000304, 60 fps, pair 1260: up to 62 px off the median flow),
+    rendered at 2704x2028: every point ends inside its entry margin."""
+    from portbench.gen import synthclip
+
+    W, H, fps = 2704, 2028, 60.0
+    lens = synthclip.hero6_lens(W, H, 0.01111)
+    frames = synthclip.render_frames(2200000304, [1260, 1261], fps, W, H, lens.ro, "cpu", lens)
+    with recording() as rec:
+        T.track_clip(_Problem(), tlens.Lens(**vars(lens)), frames, np.array([1260, 1261]) / fps,
+                     grid_step=200, block=1)
+    (blk,) = [r for r in rec.records if r.name == "track.block"]
+    assert blk.counts == {"pairs": 1, "lk_edge_points": 0}
+    assert rec.counted("host_reads") == 3
 
 
 # ---------------------------------------------------------------------------
