@@ -30,7 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
    PreSync + 4 L-BFGS Sync passes;
 5. PreSync and Sync(4x) times through the stages `run_batched` chains
    (median of 3 after one warm-up), peak device memory, outer Sync
-   iterations per pass; then, after the same PreSync, 4 Sync passes with
+   iterations per pass, the Sync loop's `sync.graph_captures` (0 after
+   the warm-up) and `sync.graph_replays` (one a trip) beside its time,
+   and Sync(4x) with the trips eager (time; results bit-equal); then,
+   after the same PreSync, 4 Sync passes with
    motion_opt="lbfgs" over all 30 windows (`sync_stage` -> `sync_loop`,
    what rssync_tpu's vmap of sync_window computes), K1/K2 counters zeroed
    just before and read just after: wall time (one run), outer and
@@ -1410,6 +1413,7 @@ def main() -> None:
         from rssync_tpu_torch import create_sync_problem
         from rssync_tpu_torch.analysis.metrics import sync_rmse
         from rssync_tpu_torch.core import ransac as R
+        from rssync_tpu_torch.core import sync as SY
         from rssync_tpu_torch.core.presync import presync_grid
         from rssync_tpu_torch.parallel import batch as B
         from rssync_tpu_torch.parallel import mesh as M
@@ -1622,12 +1626,34 @@ def main() -> None:
     t_presync = wall_s(presync, torch)
     t_sync = wall_s(sync4, torch)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    seeds = sp._seeds.get_state()
+    with recording() as rec:  # the trips as graph replays, captured already
+        sync4()
+        torch.cuda.synchronize()
+    graph = {k: rec.counted(f"sync.graph_{k}") for k in ("captures", "replays")}
+    trips = rec.counted("outer_iters")
+    graphed = out["sync"]
+    use_graph = SY._use_graph
+    SY._use_graph = lambda delay0, motion_opt: False  # the eager trips, for comparison
+    try:
+        t_sync_eager = wall_s(sync4, torch)
+        sp._seeds.set_state(seeds)  # the recorded run's draws
+        sync4()
+    finally:
+        SY._use_graph = use_graph
+    same = all(torch.equal(torch.nan_to_num(x, nan=-7.0), torch.nan_to_num(y, nan=-7.0))
+               for a, b in zip(graphed, out["sync"]) for x, y in zip(a, b))
     bench_err_ms = float((out["sync"][-1].delay.double() - truth).abs().max()) * 1000
     iters = [int(r.iterations.max()) for r in out["sync"]]
-    print(f"# presync: {t_presync:.4f} s  sync(4x): {t_sync:.4f} s  "
+    print(f"# presync: {t_presync:.4f} s  sync(4x): {t_sync:.4f} s (sync.graph_captures "
+          f"{graph['captures']}, sync.graph_replays {graph['replays']} over {trips} trips; "
+          f"eager trips {t_sync_eager:.4f} s, results bit-equal {same})  "
           f"max offset err: {bench_err_ms:.4f} ms  peak device memory {peak_gib:.3f} GiB  "
           f"outer iterations per pass {iters} ({card})", flush=True)
     check(bench_err_ms <= OFFSET_TOL_MS, f"timed-run offset error {bench_err_ms:.4f} ms")
+    check(graph["captures"] == 0 and graph["replays"] == trips > 0,
+          f"Sync(4x) graph counts {graph} over {trips} trips")
+    check(same, "Sync(4x): the graphed trips differ from the eager ones")
 
     # the L-BFGS Sync at full width, after the same PreSync
     S.reset_launch_counters()

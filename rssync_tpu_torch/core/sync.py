@@ -34,11 +34,22 @@ Windows that have stopped freeze their delay, momentum, motion, counter
 and traces while the others run on. The delay gradient is analytic
 (autograd through the spline) instead of the reference's central
 difference, which cannot survive f32.
+
+A trip (steps 1-3) is one function, `_sync_trip`, over the loop's state.
+On a CUDA device with "irls" motion its ~1200 small kernels have fixed
+shapes and no host read, so the trip is captured once as a CUDA graph
+(over static copies of the inputs and the state, kept per device and
+shape) and replayed once a trip: the same kernels in the same order on
+the same values, so the results are bit-equal to the eager loop. The
+CPU, and "lbfgs" motion (whose loop reads the host), run the trip
+eagerly.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -46,7 +57,7 @@ import torch
 from rssync_tpu_torch.core.problem import SplineTable, TrackWindow, compute_problem
 from rssync_tpu_torch.core.ransac import guess_motion_window, guess_motion_window_batched
 from rssync_tpu_torch.ops.robust import clamp_k, safe_norm
-from rssync_tpu_torch.utils.timing import count, span
+from rssync_tpu_torch.utils.timing import NO_SPAN, count, span
 
 # --- reference hyperparameters ---------------------------------------------
 SYNC_RANSAC_ITERS = 200        # GuessMotion hypotheses (ref :127)
@@ -375,17 +386,18 @@ def _trial_steps(dtype, device) -> torch.Tensor:
     return BT_INITIAL_STEP * torch.pow(torch.tensor(BT_DECAY, dtype=dtype, device=device), k)
 
 
-def _backtrack_step(f_only, x0, fval, grad):
+def _backtrack_step(f_only, x0, fval, grad, ts):
     """One Backtrack::Step per window (ref: backtrack.cpp:3-13):
     returns -t * grad with t from Armijo backtracking.
 
-    The trial steps t0 * decay^k are known in advance, so all of them
-    are evaluated in one batched call (trials x windows) and each
-    window takes its first accept: the reference's sequential
-    selection, without a host sync per trial. A window with no accept
-    keeps t0 * decay^BT_MAX_ITERS (effectively zero step), as in the
-    reference. f_only maps delays (T, W) to losses (T, W)."""
-    ts = _trial_steps(x0.dtype, x0.device)[:, None]  # (T, 1)
+    The trial steps t0 * decay^k are known in advance (`ts`, as
+    `_trial_steps` gives them), so all of them are evaluated in one
+    batched call (trials x windows) and each window takes its first
+    accept: the reference's sequential selection, without a host sync
+    per trial. A window with no accept keeps t0 * decay^BT_MAX_ITERS
+    (effectively zero step), as in the reference. f_only maps delays
+    (T, W) to losses (T, W)."""
+    ts = ts[:, None]  # (T, 1)
     vals = f_only(x0[None] - ts * grad[None])  # (T, W)
     ok = (fval[None] - vals) >= ts * BT_SUFFICIENT_DECREASE * (grad * grad)[None]
     first = torch.argmax(ok.to(torch.int32), dim=0)  # first accept, or 0
@@ -451,6 +463,211 @@ def _loss_and_grad(table, wins, x0, M, var_k):
     return f.detach(), g
 
 
+class _LoopState(NamedTuple):
+    """What a trip of `sync_loop` reads and writes, all on the device."""
+
+    delay: torch.Tensor         # (W,)
+    v: torch.Tensor             # (W,) the delay's momentum
+    M: torch.Tensor             # (W, F, 3)
+    cc: torch.Tensor            # (W,) int32 small steps in a row
+    done: torch.Tensor          # (W,) bool
+    iters: torch.Tensor         # (W,) int32
+    motion_iters: torch.Tensor  # (W,) int32
+    tr_d: torch.Tensor          # (W, OUTER_MAX_ITERS)
+    tr_s: torch.Tensor          # (W, OUTER_MAX_ITERS)
+    trip: torch.Tensor          # () int64: trips run, the traces' next column
+
+
+def _loop_start(delay0: torch.Tensor, M0: torch.Tensor) -> _LoopState:
+    """The state before the first trip. M starts contiguous, the layout
+    every trip's update gives it (GuessMotion's M0 is a transposed view):
+    the card sums `_unit`'s three squares in an order that follows the
+    layout, so a trip computes the same on its first pass as on later
+    ones, and a captured trip equals every eager one."""
+    W = delay0.shape[0]
+    dtype, dev = delay0.dtype, delay0.device
+    zeros = torch.zeros(W, dtype=torch.int32, device=dev)
+    nan = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
+    return _LoopState(
+        delay=delay0.clone(), v=torch.zeros_like(delay0), M=M0.contiguous(), cc=zeros,
+        done=torch.zeros(W, dtype=torch.bool, device=dev), iters=zeros.clone(),
+        motion_iters=zeros.clone(), tr_d=nan, tr_s=nan.clone(),
+        trip=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def _unmarked(name: str):
+    """`span`'s stand-in where a trip is captured: it records nothing."""
+    return NO_SPAN
+
+
+def _sync_trip(
+    table: SplineTable, wins: TrackWindow, var_k: torch.Tensor, centers: torch.Tensor,
+    radius: torch.Tensor, ts: torch.Tensor, st: _LoopState, motion_opt: str,
+    mark=span,
+) -> _LoopState:
+    """One trip of the outer loop, steps 1-3 of the module docstring:
+    the state after it, in new tensors (`st` is left as it was). ts: the
+    backtrack's trial steps (`_trial_steps`). Spans (by `mark`):
+    `sync.motion` and `sync.step`."""
+    active = ~st.done
+    with mark("sync.motion"):
+        # 1. motion refinement at the current delay
+        P = compute_problem(table, wins, st.delay)
+        if motion_opt == "irls":
+            M_new = motion_irls(P, st.M, var_k)
+            motion_iters = st.motion_iters + MOTION_IRLS_ITERS * active.to(torch.int32)
+        else:
+            M_new, lane_iters = _motion_lbfgs(P, st.M, var_k, wins.frame_mask, st.done)
+            motion_iters = st.motion_iters + lane_iters.amax(dim=-1)
+    with mark("sync.step"):
+        # 2. Nesterov-lookahead backtracked delay step (ref :298-305)
+        v = st.v
+        x0 = st.delay - DELAY_MOMENTUM * v
+        fval, grad = _loss_and_grad(table, wins, x0, M_new, var_k)
+        step = _backtrack_step(
+            lambda x: window_loss(table, wins, x, M_new, var_k), x0, fval, grad, ts
+        )
+        if motion_opt == "irls":  # momentum restart, see the module docstring
+            v_new = DELAY_MOMENTUM * torch.where(step * v < 0.0, 0.0, v) + step
+        else:
+            v_new = DELAY_MOMENTUM * v + step
+        delay_new = st.delay + v_new
+        cc_new = torch.where(torch.abs(step) < CONVERGE_STEP, st.cc + 1, 0)
+        done_new = (cc_new > CONVERGE_COUNT) | (torch.abs(delay_new - centers) > radius)
+        # 3. windows that were done already keep everything as it was;
+        # the active ones write the trip's column of the traces
+        col = active[:, None] & (
+            torch.arange(OUTER_MAX_ITERS, device=st.trip.device) == st.trip)
+        return _LoopState(
+            delay=torch.where(active, delay_new, st.delay),
+            v=torch.where(active, v_new, v),
+            M=torch.where(active[:, None, None], M_new, st.M),
+            cc=torch.where(active, cc_new, st.cc),
+            done=st.done | done_new,
+            iters=st.iters + active.to(torch.int32),
+            motion_iters=motion_iters,
+            tr_d=torch.where(col, delay_new[:, None], st.tr_d),
+            tr_s=torch.where(col, step[:, None], st.tr_s),
+            trip=st.trip + 1,
+        )
+
+
+def _run_trips(st: _LoopState, trip) -> _LoopState:
+    """The outer loop: `trip` (state -> state) until every window is
+    done or OUTER_MAX_ITERS trips, the done test read on the host before
+    each trip (span `sync.done`, count `host_reads`; count `outer_iters`
+    a trip)."""
+    for _ in range(OUTER_MAX_ITERS):
+        with span("sync.done"):
+            count("host_reads")
+            finished = bool(st.done.all())
+        if finished:
+            break
+        count("outer_iters")
+        st = trip(st)
+    return st
+
+
+#: graphs of the IRLS trip kept per device (each with its static buffers
+#: and its memory pool): the last ones used, one for each input shape
+GRAPHS_PER_DEVICE = 4
+#: eager trips run on a side stream before a capture, as torch's
+#: make_graphed_callables warms up
+GRAPH_WARMUP_TRIPS = 3
+_GRAPHS_LOCK = threading.Lock()
+#: device -> (lock held through a graphed loop, OrderedDict key -> _TripGraph)
+_GRAPHS: dict = {}
+
+
+def _use_graph(delay0: torch.Tensor, motion_opt: str) -> bool:
+    """Whether `sync_loop` replays a captured trip: CUDA and IRLS."""
+    return delay0.is_cuda and motion_opt == "irls"
+
+
+def _graph_inputs(table, wins, var_k, centers, radius) -> list[torch.Tensor]:
+    """The tensors a trip reads besides its state, in a fixed order."""
+    return [table.coeffs, table.sample_rate,
+            *(getattr(wins, k) for k in TrackWindow.__dataclass_fields__),
+            var_k, centers, radius]
+
+
+class _TripGraph:
+    """The IRLS trip captured as one CUDA graph over static copies of its
+    inputs (`load` fills them) and of the loop's state, which each replay
+    advances in place by one trip."""
+
+    def __init__(self, inputs: list[torch.Tensor], state: _LoopState):
+        self.inputs = [torch.empty_like(x) for x in inputs]
+        self.state = _LoopState(*(torch.empty_like(x) for x in state))
+        coeffs, rate, *rest = self.inputs
+        nw = len(TrackWindow.__dataclass_fields__)
+        self.table = SplineTable(coeffs=coeffs, sample_rate=rate)
+        self.wins = TrackWindow(*rest[:nw])
+        self.var_k, self.centers, self.radius = rest[nw:]
+        self.ts = _trial_steps(self.state.delay.dtype, self.state.delay.device)
+        self.graph = None
+
+    def load(self, inputs: list[torch.Tensor], state: _LoopState) -> None:
+        for dst, src in zip([*self.inputs, *self.state], [*inputs, *state]):
+            dst.copy_(src)
+
+    def _trip(self) -> _LoopState:
+        return _sync_trip(self.table, self.wins, self.var_k, self.centers, self.radius,
+                          self.ts, self.state, "irls", _unmarked)
+
+    def capture(self) -> None:
+        """Warm up on a side stream, then capture a trip and its write
+        back into the state. Only this thread's capture is guarded
+        (`thread_local`): `parallel/mesh.py` runs a loop a device from
+        worker threads."""
+        dev = self.state.delay.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP_TRIPS):
+                self._trip()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                for dst, src in zip(self.state, self._trip()):
+                    dst.copy_(src)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = graph
+
+    def replay(self, st: _LoopState) -> _LoopState:
+        count("sync.graph_replays")
+        with span("sync.replay"):
+            self.graph.replay()
+        return st
+
+
+def _graphed_trips(table, wins, var_k, centers, radius, st: _LoopState) -> _LoopState:
+    """`_run_trips` with every trip a replay of the cached graph for the
+    inputs' shapes (captured first where there is none: count
+    `sync.graph_captures`, span `sync.capture`). Returns copies of the
+    final state."""
+    inputs = _graph_inputs(table, wins, var_k, centers, radius)
+    key = tuple((tuple(x.shape), x.dtype) for x in [*inputs, st.delay, st.M])
+    dev = st.delay.device
+    with _GRAPHS_LOCK:
+        lock, graphs = _GRAPHS.setdefault(dev, (threading.Lock(), OrderedDict()))
+    with lock:
+        tg = graphs.pop(key, None) or _TripGraph(inputs, st)
+        graphs[key] = tg
+        while len(graphs) > GRAPHS_PER_DEVICE:
+            graphs.popitem(last=False)
+        tg.load(inputs, st)
+        if tg.graph is None:
+            count("sync.graph_captures")
+            with span("sync.capture"):
+                tg.capture()
+        end = _run_trips(tg.state, tg.replay)
+        return _LoopState(*(x.clone() for x in end))
+
+
 @torch.no_grad()
 def sync_loop(
     table: SplineTable, wins: TrackWindow, delay0: torch.Tensor,
@@ -463,70 +680,30 @@ def sync_loop(
     sync per iteration. motion_opt: "irls" (motion_irls) or "lbfgs"
     (batched_lbfgs over every frame of every window, the frames of
     finished windows frozen), as rssync_tpu/core/sync.py:471-474.
+    On a CUDA device with "irls" each trip is a replay of one captured
+    CUDA graph (module docstring), with the same results.
 
     Spans: `sync.loop` the call (count `outer_iters`, the loop's trips),
     and in each trip `sync.done` (the done test's host read, count
-    `host_reads`), `sync.motion` (the motion refinement) and `sync.step`
-    (the loss, its gradient, the backtracked step and the updates)."""
+    `host_reads`), then `sync.motion` (the motion refinement) and
+    `sync.step` (the loss, its gradient, the backtracked step and the
+    updates), or where the trip is a graph `sync.replay` (count
+    `sync.graph_replays` a replay; before the first trip, `sync.capture`
+    and count `sync.graph_captures` where the graph is captured)."""
     if motion_opt not in ("irls", "lbfgs"):
         raise ValueError(f"unknown motion_opt {motion_opt!r}")
     with span("sync.loop"):
-        W = delay0.shape[0]
-        dtype, dev = delay0.dtype, delay0.device
-        delay = delay0.clone()
-        v = torch.zeros_like(delay)
-        M = M0
-        cc = torch.zeros(W, dtype=torch.int32, device=dev)
-        done = torch.zeros(W, dtype=torch.bool, device=dev)
-        iters = torch.zeros(W, dtype=torch.int32, device=dev)
-        tr_d = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
-        tr_s = torch.full((W, OUTER_MAX_ITERS), math.nan, dtype=dtype, device=dev)
-        motion_iters = torch.zeros(W, dtype=torch.int32, device=dev)
-
-        for i in range(OUTER_MAX_ITERS):
-            with span("sync.done"):
-                count("host_reads")
-                finished = bool(done.all())
-            if finished:
-                break
-            count("outer_iters")
-            active = ~done
-            with span("sync.motion"):
-                # 1. motion refinement at the current delay
-                P = compute_problem(table, wins, delay)
-                if motion_opt == "irls":
-                    M_new = motion_irls(P, M, var_k)
-                    motion_iters = motion_iters + MOTION_IRLS_ITERS * active.to(torch.int32)
-                else:
-                    M_new, lane_iters = _motion_lbfgs(P, M, var_k, wins.frame_mask, done)
-                    motion_iters = motion_iters + lane_iters.amax(dim=-1)
-            with span("sync.step"):
-                # 2. Nesterov-lookahead backtracked delay step (ref :298-305)
-                x0 = delay - DELAY_MOMENTUM * v
-                fval, grad = _loss_and_grad(table, wins, x0, M_new, var_k)
-                step = _backtrack_step(
-                    lambda x: window_loss(table, wins, x, M_new, var_k), x0, fval, grad
-                )
-                if motion_opt == "irls":  # momentum restart, see the module docstring
-                    v_new = DELAY_MOMENTUM * torch.where(step * v < 0.0, 0.0, v) + step
-                else:
-                    v_new = DELAY_MOMENTUM * v + step
-                delay_new = delay + v_new
-                cc_new = torch.where(torch.abs(step) < CONVERGE_STEP, cc + 1, 0)
-                done_new = (cc_new > CONVERGE_COUNT) | (torch.abs(delay_new - centers) > radius)
-                # 3. windows that were done already keep everything as it was
-                delay = torch.where(active, delay_new, delay)
-                v = torch.where(active, v_new, v)
-                M = torch.where(active[:, None, None], M_new, M)
-                cc = torch.where(active, cc_new, cc)
-                tr_d[:, i] = torch.where(active, delay_new, tr_d[:, i])
-                tr_s[:, i] = torch.where(active, step, tr_s[:, i])
-                iters = iters + active.to(torch.int32)
-                done = done | done_new
+        st = _loop_start(delay0, M0)
+        if _use_graph(delay0, motion_opt):
+            st = _graphed_trips(table, wins, var_k, centers, radius, st)
+        else:
+            ts = _trial_steps(delay0.dtype, delay0.device)
+            st = _run_trips(st, lambda s: _sync_trip(
+                table, wins, var_k, centers, radius, ts, s, motion_opt))
         return SyncResult(
-            cost=window_loss(table, wins, delay, M, var_k), delay=delay,
-            iterations=iters, trace_delay=tr_d, trace_step=tr_s,
-            motion_iterations=motion_iters,
+            cost=window_loss(table, wins, st.delay, st.M, var_k), delay=st.delay,
+            iterations=st.iters, trace_delay=st.tr_d, trace_step=st.tr_s,
+            motion_iterations=st.motion_iters,
         )
 
 
