@@ -52,7 +52,7 @@ Phases (any failure exits non-zero and prints no result line):
    in 16-pair blocks and emitted into a SyncProblem on the card, the
    gyro log integrated into it, then `run_batched`; every window within
    0.5 ms of the truth. The tracking is recorded: emission's lift kernel
-   (csrc/lift_rays.cu) launched, 2 `lift_launches` a `track.block`.
+   (csrc/lift_rays.cu) launched, 2 `lift_launches` a `track.emit`.
    Then the same gyro log from files: written as a
    .gcsv (rssync_tpu's make_clip layout) and as a GoPro GPMF MP4
    (tests/gpmf_fixture.py's writer), each read by `load_gyro` through the
@@ -1766,15 +1766,15 @@ def main() -> None:
     torch.cuda.synchronize()
     t_track = time.perf_counter() - t1
     lift_launches = LN.LAUNCHES["lift_points"]
-    blocks = rec.summary()["track.block"]["calls"]
+    blocks = rec.summary()["track.emit"]["calls"]
     emit_lens, emit_size = clip.lens, (clip.width, clip.height)
-    print(f"# end to end: lift_points launched {lift_launches} times over {blocks} track.block "
+    print(f"# end to end: lift_points launched {lift_launches} times over {blocks} track.emit "
           f"spans (recorded lift_launches {rec.counted('lift_launches')}), emit.lift "
           f"{rec.summary()['emit.lift']['total_s']:.4f} s, shapes "
           f"{sorted(LN.LAUNCH_SHAPES['lift_points'])}", flush=True)
     check(lift_launches > 0, "end to end: the lift kernel was not launched")
     check(rec.counted("lift_launches") == lift_launches == 2 * blocks,
-          "end to end: lift_launches is not 2 a track.block")
+          "end to end: lift_launches is not 2 a track.emit")
     t1 = time.perf_counter()
     e2e_ms = np.asarray(run_batched(sp, syncpoints, sync_window, 1.0, True,
                                     PRESYNC_RADIUS_MS, PRESYNC_STEP_MS))

@@ -41,8 +41,10 @@ chosen per run by `_range_feeds`.
 
 from __future__ import annotations
 
+import itertools
 import math
 import threading
+from collections import deque
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Iterator, Sequence
@@ -80,6 +82,9 @@ STRIP_PAD = 24
 
 #: frame pairs per tracking launch
 TRACK_BLOCK = 16
+#: blocks `_track_blocks` keeps in flight (sliced or decoded and
+#: uploaded, tracking) before it drains the oldest
+TRACK_DEPTH = 3
 
 #: pyramid depth from which `_fine_plan` takes the deep plan (frames of
 #: ~1500 px and up)
@@ -901,12 +906,11 @@ def emit_track_result(problem, lens: lens_ops.Lens, pts: np.ndarray,
     endpoints to unit rays, apply rolling-shutter timestamps, call
     `set_track_result` (ref: core_testcode.cpp:140-157). pts: the (N, 2)
     host grid; pts_t: the same as a float32 tensor on the tracker's
-    device; tracked: (N, 2) positions in the next frame."""
+    device, where the pair is lifted; tracked: (N, 2) positions in the
+    next frame. A one-pair `emit_track_block`."""
     tracked_t = torch.as_tensor(tracked, dtype=_F32, device=pts_t.device)
-    rays_a, rays_b = lift_rays(lens, pts_t, tracked_t)
-    ts_a, ts_b = rolling_shutter_ts(
-        lens, pts, tracked_t.cpu().numpy(), ts_cur, ts_nxt, height)
-    problem.set_track_result(frame_idx, ts_a, ts_b, _f64(rays_a), _f64(rays_b))
+    emit_track_block(problem, lens, pts, tracked_t[None], [frame_idx], [ts_cur, ts_nxt],
+                     height)
 
 
 def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
@@ -955,6 +959,48 @@ def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
     return n_edge
 
 
+def _track_blocks(problem, lens: lens_ops.Lens, pts: np.ndarray, hw: tuple[int, int],
+                  blocks: Iterator[tuple[torch.Tensor, Sequence, Sequence]]) -> None:
+    """The block loop of `track_clip` and `track_frames`: track each
+    block that `blocks` yields and feed its pairs to
+    `problem.set_track_result`. A block is (stack, frame_idx, frame_ts):
+    block + 1 storage-padded frames on the tracker's device, the first
+    frames of the P pairs it emits, and the P + 1 frames' seconds. pts:
+    the (N, 2) host grid; hw: the unpadded (H, W).
+
+    Up to TRACK_DEPTH blocks stay in flight: `emit_track_block` drains
+    the oldest before the next block is pulled, so a source may reuse a
+    block's host buffer TRACK_DEPTH blocks later.
+
+    Spans: `track.block` one pull (the source's spans), its enqueue
+    (`track.pyramid`, `track.coarse`, `track.lk`) and one drain
+    (`track.emit`; counts `pairs` and, while recording,
+    `lk_edge_points`: the drained pairs' points whose entry-level LK
+    iterate ended within 1 px of its margin). A block is drained
+    TRACK_DEPTH - 1 `track.block`s after its own; once the source is
+    spent, one a `track.block`."""
+    pending: deque = deque()
+    done = False
+    while pending or not done:
+        with span("track.block"):
+            blk = None if done else next(blocks, None)
+            done = blk is None
+            if not done:
+                stack, frame_idx, frame_ts = blk
+                edges = recording_on()
+                out = lk_track_video(stack, pts, logical_hw=hw, edges=edges)
+                pending.append((frame_idx, frame_ts, *(out if edges else (out, None))))
+            if pending and (done or len(pending) >= TRACK_DEPTH):
+                frame_idx, frame_ts, tracked, edge = pending.popleft()
+                n = len(frame_idx)
+                count("pairs", n)
+                args = (problem, lens, pts, tracked[:n], frame_idx, frame_ts, hw[0])
+                if edge is None:
+                    emit_track_block(*args)
+                else:
+                    count("lk_edge_points", emit_track_block(*args, edge_points=edge[:n]))
+
+
 def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
                ranges=None, grid_step: int | None = None,
                block: int = TRACK_BLOCK) -> None:
@@ -964,44 +1010,32 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
 
     frames: (T, H, W) uint8 clip on the tracker's device; frame_ts: (T,)
     seconds; ranges: (begin, end) pair ranges, end exclusive (pair p
-    reads frames p and p + 1); None = every pair. Each range is tracked
-    in blocks of `block` pairs by `lk_track_video`; a short tail block is
-    filled up by repeating its last frame (those pairs are not
-    emitted), so every block has the same shape.
+    reads frames p and p + 1); None = every pair. Each range is cut into
+    blocks of `block` pairs, sliced on the device and tracked by
+    `_track_blocks`; a short tail block is filled up by repeating its
+    last frame (those pairs are not emitted), so every block has the
+    same shape.
 
-    Spans: `track.block` a block (count `pairs`, the pairs it emits, and
-    while recording `lk_edge_points`, their points whose entry-level LK
-    iterate ended within 1 px of its margin: counted on the card, read
-    with the tracked points), inside it `track.slice` (the block's
-    frames sliced and padded), the tracker's `track.pyramid`,
-    `track.coarse` (> `coarse.global`, `coarse.volume`), `track.lk` and
-    `track.emit`."""
+    Spans: `_track_blocks`'s, with `track.slice` (a block's frames
+    sliced and padded) the source's."""
     T, H, W = frames.shape
     if ranges is None:
         ranges = [(0, T - 1)]
-    pts = grid_points(W, H, grid_step)
-    step = grid_step or auto_grid_step(W)
-    levels = auto_levels(H, W)
-    fine0 = _level_plan(levels, LK_ITERS, LK_RADIUS)[2]
+    fine0 = _level_plan(auto_levels(H, W), LK_ITERS, LK_RADIUS)[2]
     frame_ts = np.asarray(frame_ts, np.float64)
-    for pb, pe in ranges:
-        pb, pe = max(0, int(pb)), min(T - 1, int(pe))
-        for s in range(pb, pe, block):
-            e = min(s + block, pe)  # pairs s .. e-1, frames s .. e
-            with span("track.block"):
-                count("pairs", e - s)
+
+    def slices():
+        for pb, pe in ranges:
+            pb, pe = max(0, int(pb)), min(T - 1, int(pe))
+            for s in range(pb, pe, block):
+                e = min(s + block, pe)  # pairs s .. e-1, frames s .. e
                 with span("track.slice"):
-                    idx = torch.clamp(torch.arange(s, s + block + 1, device=frames.device), max=e)
+                    idx = torch.clamp(torch.arange(s, s + block + 1, device=frames.device),
+                                      max=e)
                     stack = _pad_lanes(frames.index_select(0, idx), fine0)
-                edges = recording_on()
-                out = lk_track_video(stack, grid_step=step, logical_hw=(H, W), edges=edges)
-                tracked, edge = out if edges else (out, None)
-                args = (problem, lens, pts, tracked[: e - s], np.arange(s, e),
-                        frame_ts[s : e + 1], H)
-                if edge is None:
-                    emit_track_block(*args)
-                else:
-                    count("lk_edge_points", emit_track_block(*args, edge_points=edge[: e - s]))
+                yield stack, np.arange(s, e), frame_ts[s : e + 1]
+
+    _track_blocks(problem, lens, grid_points(W, H, grid_step), (H, W), slices())
 
 
 # ---------------------------------------------------------------------------
@@ -1249,11 +1283,6 @@ def _merge_pair_ranges(ranges, frame_begin: int, frame_end: int) -> list[tuple[i
     return [(b, e) for b, e in out]
 
 
-#: blocks the lk path keeps in flight (decoded, uploaded, tracking)
-#: before it drains the oldest
-TRACK_DEPTH = 3
-
-
 def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int,
                  frame_end: int, grid_step: int | None = None, method: str = "lk",
                  progress: bool = False, block: int = TRACK_BLOCK, ranges=None,
@@ -1264,12 +1293,11 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
     method: "lk" (the tracker on `device`: frames decode on the host in
     blocks of `block` pairs, are storage-padded there by
     `stack_pad_host`, a short tail block filled by repeating its last
-    frame, uploaded as u8 from pinned memory, tracked by
-    `lk_track_video` and emitted by `emit_track_block`, with up to
-    TRACK_DEPTH blocks in flight, so the tracks equal `track_clip`'s on
-    the same frames bit for bit) or "dis" (host cv2 DIS dense flow
-    sampled at the grid, the reference's tracker, for cross-validation;
-    rays are lifted on `device`).
+    frame, uploaded as u8 from pinned memory and tracked by
+    `_track_blocks`, the block loop of `track_clip`, so the tracks
+    equal `track_clip`'s on the same frames bit for bit) or "dis" (host
+    cv2 DIS dense flow sampled at the grid, the reference's tracker,
+    for cross-validation; rays are lifted on `device`).
 
     ranges: optional (begin, end)-exclusive PAIR ranges restricting
     tracking to the pairs the engine will read; the pipeline passes the
@@ -1283,12 +1311,9 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
     RSSYNC_TRACK_MAX_STAGED) is not ported: nothing here compiles at
     first call.
 
-    Spans: `track.block` a block (counts `pairs` and, while recording,
-    `lk_edge_points`, of the pairs emitted in it: a block emits the
-    block TRACK_DEPTH - 1 before it, and the last blocks are emitted
-    after the feed ends, each in a `track.block` of its own), inside it `track.decode_wait` (the next frames from the
-    decoder), `track.stack` (the host pad), `track.upload` (the copy to
-    `device`, enqueued) and the tracker's spans, as in `track_clip`.
+    Spans: `_track_blocks`'s, with the source's `track.decode_wait`
+    (the next frames from the decoder), `track.stack` (the host pad)
+    and `track.upload` (the copy to `device`, enqueued).
     """
     dev = torch.device(device)
     if ranges is None:
@@ -1322,41 +1347,22 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
     if method != "lk":
         raise ValueError(f"unknown tracking method {method!r}")
 
-    step = grid_step or auto_grid_step(width)
     fine0 = _level_plan(auto_levels(height, width), LK_ITERS, LK_RADIUS)[2]
     Hp, Wp = _stored_dims(height, width, "fine" if fine0 else "lane")
-    # one host buffer per block in flight: a block's buffer is reused
-    # only after that block was drained, so its upload has finished
+    # one host buffer per block in flight: `_track_blocks` pulls a block
+    # only after the block that last used its buffer was drained, so that
+    # block's upload has finished
     pinned = dev.type == "cuda"
-    bufs = [torch.empty((block + 1, Hp, Wp), dtype=torch.uint8, pin_memory=pinned).numpy()
-            for _ in range(TRACK_DEPTH)]
-    pending: list[tuple[list[Frame], torch.Tensor, torch.Tensor | None]] = []
-    n_blocks = 0
+    bufs = itertools.cycle([
+        torch.empty((block + 1, Hp, Wp), dtype=torch.uint8, pin_memory=pinned).numpy()
+        for _ in range(TRACK_DEPTH)])
 
-    def drain(p):
-        p_frames, tracked, edge = p
-        n = len(p_frames) - 1
-        count("pairs", n)
-        args = (problem, lens, pts, tracked[:n], [f.index for f in p_frames[:-1]],
-                [f.timestamp for f in p_frames], height)
-        if edge is None:
-            emit_track_block(*args)
-        else:
-            count("lk_edge_points", emit_track_block(*args, edge_points=edge[:n]))
-
-    for (pb, pe), it in zip(ranges, _range_feeds(video_path, ranges)):
-        carry: Frame | None = None
-        done = False
-        while not done:
-            with span("track.block"):
+    def uploads():
+        for it in _range_feeds(video_path, ranges):
+            carry: list[Frame] = []
+            while True:
                 with span("track.decode_wait"):
-                    frames = [carry] if carry is not None else []
-                    while len(frames) < block + 1:
-                        try:
-                            frames.append(next(it))
-                        except StopIteration:
-                            done = True
-                            break
+                    frames = carry + list(itertools.islice(it, block + 1 - len(carry)))
                 if len(frames) < 2:
                     break
                 if progress:
@@ -1364,17 +1370,12 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
                           flush=True)
                 with span("track.stack"):
                     stack_np = stack_pad_host([f.gray for f in frames], block + 1, height,
-                                              width, Hp, Wp, out=bufs[n_blocks % TRACK_DEPTH])
+                                              width, Hp, Wp, out=next(bufs))
                 with span("track.upload"):
                     stack = torch.from_numpy(stack_np).to(dev, non_blocking=True)
-                edges = recording_on()
-                out = lk_track_video(stack, grid_step=step, logical_hw=(height, width),
-                                     edges=edges)
-                pending.append((frames, *(out if edges else (out, None))))
-                n_blocks += 1
-                if len(pending) >= TRACK_DEPTH:
-                    drain(pending.pop(0))
-            carry = frames[-1]
-    for p in pending:
-        with span("track.block"):
-            drain(p)
+                yield stack, [f.index for f in frames[:-1]], [f.timestamp for f in frames]
+                if len(frames) < block + 1:  # the feed ended inside this block
+                    break
+                carry = frames[-1:]
+
+    _track_blocks(problem, lens, pts, (height, width), uploads())

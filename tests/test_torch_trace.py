@@ -25,8 +25,9 @@ torch.set_num_threads(2)
 #: pair ranges that track_clip runs in blocks of 4 as blocks of 3, 4 and
 #: 1 pairs (a range shorter than a block, then a tail of one pair)
 RANGES, BLOCK = [(0, 3), (4, 9)], 4
-#: children of a track_clip block, in the order they open
-BLOCK_CHILDREN = ["track.slice", "track.pyramid", "track.coarse", "track.lk", "track.emit"]
+#: children of a track_clip block's pull and enqueue, in the order they
+#: open; the block it drains adds `track.emit`
+BLOCK_CHILDREN = ["track.slice", "track.pyramid", "track.coarse", "track.lk"]
 EMIT_CHILDREN = ["emit.lift", "emit.read", "emit.lift", "emit.read", "emit.set"]
 
 
@@ -174,6 +175,10 @@ def test_span_clock_holds_the_profilers_events():
 
 
 def test_track_clip_spans_and_tracks_bit_equal(clip):
+    """Three blocks through the block runner: each pulled and enqueued in
+    a `track.block` of its own, the first drained in the third's and the
+    other two in one `track.block` each once the ranges are spent, their
+    `track.emit` and counts under the `track.block` that drains them."""
     off, on = _Problem(), _Problem()
     T.track_clip(off, clip.lens, clip.frames, clip.frame_ts, RANGES, block=BLOCK)
     with recording(context=3) as rec:
@@ -183,17 +188,21 @@ def test_track_clip_spans_and_tracks_bit_equal(clip):
     blocks = sorted((r for r in rec.records if r.name == "track.block"),
                     key=lambda r: r.start_ns)
     # the clip's small motion leaves no point at its LK margin
-    assert [b.counts for b in blocks] == [{"pairs": n, "lk_edge_points": 0} for n in (3, 4, 1)]
+    drained = [{"pairs": n, "lk_edge_points": 0} for n in (3, 4, 1)]
+    assert [b.counts for b in blocks] == [{}, {}] + drained
     assert all(r.context == 3 for r in rec.records)
-    for b in blocks:
+    kids = [_children(rec, b.id) for b in blocks]
+    assert [[k.name for k in ks] for ks in kids] == (
+        [BLOCK_CHILDREN] * 2 + [BLOCK_CHILDREN + ["track.emit"]] + [["track.emit"]] * 2)
+    for b, ks in zip(blocks, kids):
         assert b.parent is None
-        kids = _children(rec, b.id)
-        assert [k.name for k in kids] == BLOCK_CHILDREN
-        emit = _children(rec, kids[-1].id)
-        assert [k.name for k in emit] == EMIT_CHILDREN
-        assert sum(k.counts.get("host_reads", 0) for k in emit) == 3
-        assert all(not _children(rec, k.id) for k in emit)
+        for e in (k for k in ks if k.name == "track.emit"):
+            emit = _children(rec, e.id)
+            assert [k.name for k in emit] == EMIT_CHILDREN
+            assert sum(k.counts.get("host_reads", 0) for k in emit) == 3
+            assert all(not _children(rec, k.id) for k in emit)
     assert rec.counted("pairs") == len(on.calls) == 8
+    assert rec.counted("lk_edge_points") == 0
 
 
 def test_track_frames_spans(clip, tmp_path, monkeypatch):
@@ -271,7 +280,7 @@ def test_lk_edge_points_equal_a_direct_count_and_reads_stay_three(clip, monkeypa
     monkeypatch.setattr(T, "_lk_iterate", spy)
     with recording() as rec:
         T.track_clip(_Problem(), clip.lens, frames, np.arange(10) / 30.0, RANGES, block=BLOCK)
-    blocks = sorted((r for r in rec.records if r.name == "track.block"),
+    blocks = sorted((r for r in rec.records if r.name == "track.block" and r.counts),
                     key=lambda r: r.start_ns)
     assert len(direct) == len(blocks) == 3
     want = [int(d[: blk.counts["pairs"]].sum()) for d, blk in zip(direct, blocks)]
@@ -295,7 +304,7 @@ def test_lk_edge_points_read_0_on_a_60fps_pair():
     with recording() as rec:
         T.track_clip(_Problem(), tlens.Lens(**vars(lens)), frames, np.array([1260, 1261]) / fps,
                      grid_step=200, block=1)
-    (blk,) = [r for r in rec.records if r.name == "track.block"]
+    (blk,) = [r for r in rec.records if r.name == "track.block" and r.counts]
     assert blk.counts == {"pairs": 1, "lk_edge_points": 0}
     assert rec.counted("host_reads") == 3
 

@@ -513,6 +513,33 @@ def test_track_clip_ranges_and_tail_blocks():
             np.testing.assert_array_equal(x, y)
 
 
+def test_track_clip_keeps_track_depth_blocks_in_flight(monkeypatch):
+    """Over five blocks, track_clip enqueues TRACK_DEPTH blocks before it
+    emits the first, then emits the oldest after each enqueue, in block
+    order; the pairs it emits are still every pair of the clip."""
+    frames = torch.as_tensor(_u8(np.random.default_rng(13), 11, 120, 160))
+    lens = tlens.Lens(ro=0.01, fx=100.0, fy=100.0, cx=80.0, cy=60.0)
+    events = []
+    orig_track, orig_emit = T.lk_track_video, T.emit_track_block
+
+    def track(*args, **kw):
+        events.append("enqueue")
+        return orig_track(*args, **kw)
+
+    def emit(problem, lens, pts, tracked, frame_idx, *args, **kw):
+        events.append(int(frame_idx[0]))
+        return orig_emit(problem, lens, pts, tracked, frame_idx, *args, **kw)
+
+    monkeypatch.setattr(T, "lk_track_video", track)
+    monkeypatch.setattr(T, "emit_track_block", emit)
+    got = _Recorder()
+    T.track_clip(got, lens, frames, np.arange(11) / 30.0, block=2)
+    assert T.TRACK_DEPTH == 3
+    # block k emits pairs 2k and 2k + 1
+    assert events == ["enqueue"] * 3 + [0, "enqueue", 2, "enqueue", 4, 6, 8]
+    assert [c[0] for c in got.calls] == list(range(10))
+
+
 # ---------------------------------------------------------------------------
 # the port stands alone, and runs on the card unless asked otherwise
 
