@@ -52,7 +52,8 @@ Phases (any failure exits non-zero and prints no result line):
    in 16-pair blocks and emitted into a SyncProblem on the card, the
    gyro log integrated into it, then `run_batched`; every window within
    0.5 ms of the truth. The tracking is recorded: emission's lift kernel
-   (csrc/lift_rays.cu) launched, 2 `lift_launches` a `track.emit`.
+   (csrc/lift_rays.cu) launched, 1 `lift_launches` a `track.emit` and 1
+   for the grid's rays, lifted once in `track.grid`.
    Then the same gyro log from files: written as a
    .gcsv (rssync_tpu's make_clip layout) and as a GoPro GPMF MP4
    (tests/gpmf_fixture.py's writer), each read by `load_gyro` through the
@@ -1386,8 +1387,10 @@ def hybrid_phase(np, torch, dev, card, ST, TR, seen) -> None:
     levels_eq = {lvl: bool(torch.equal(whole[lvl][:CHUNK + 1], block[lvl])) for lvl in small}
     pts = TR.grid_points(Wd, H, GRID_STEP)
     r0 = TR._fine_plan(levels, TR.LK_ITERS, TR.LK_RADIUS)[-1][3]
-    t_whole = TR._lk_templates(noise, pts, r0)
-    t_block = TR._lk_templates(noise[:CHUNK], pts, r0)
+    pts0, index0 = TR.grid_forms(pts, TRACK_HW, levels, TR.LK_RADIUS, TR.LK_ITERS,
+                                 noise.device).levels[0]
+    t_whole = TR._lk_templates(noise, pts0, r0, index0)
+    t_block = TR._lk_templates(noise[:CHUNK], pts0, r0, index0)
     tmpl_eq = {k: bool(torch.equal(t_whole[k][:CHUNK], t_block[k])) for k in t_block}
     print(f"# hoisted ({n_frames} frames) vs first block: pyramid level equal {levels_eq}, "
           f"level-0 templates equal {tmpl_eq}", flush=True)
@@ -1773,8 +1776,8 @@ def main() -> None:
           f"{rec.summary()['emit.lift']['total_s']:.4f} s, shapes "
           f"{sorted(LN.LAUNCH_SHAPES['lift_points'])}", flush=True)
     check(lift_launches > 0, "end to end: the lift kernel was not launched")
-    check(rec.counted("lift_launches") == lift_launches == 2 * blocks,
-          "end to end: lift_launches is not 2 a track.emit")
+    check(rec.counted("lift_launches") == lift_launches == blocks + 1,
+          "end to end: lift_launches is not 1 a track.emit and 1 for the grid")
     t1 = time.perf_counter()
     e2e_ms = np.asarray(run_batched(sp, syncpoints, sync_window, 1.0, True,
                                     PRESYNC_RADIUS_MS, PRESYNC_STEP_MS))

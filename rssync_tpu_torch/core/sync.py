@@ -48,8 +48,6 @@ eagerly.
 from __future__ import annotations
 
 import math
-import threading
-from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -57,6 +55,8 @@ import torch
 from rssync_tpu_torch.core.problem import SplineTable, TrackWindow, compute_problem
 from rssync_tpu_torch.core.ransac import guess_motion_window, guess_motion_window_batched
 from rssync_tpu_torch.ops.robust import clamp_k, safe_norm
+from rssync_tpu_torch.utils.graphs import GraphCache
+from rssync_tpu_torch.utils.graphs import capture as capture_graphs
 from rssync_tpu_torch.utils.timing import NO_SPAN, count, span
 
 # --- reference hyperparameters ---------------------------------------------
@@ -569,15 +569,10 @@ def _run_trips(st: _LoopState, trip) -> _LoopState:
     return st
 
 
-#: graphs of the IRLS trip kept per device (each with its static buffers
-#: and its memory pool): the last ones used, one for each input shape
-GRAPHS_PER_DEVICE = 4
-#: eager trips run on a side stream before a capture, as torch's
-#: make_graphed_callables warms up
+#: eager trips run on a side stream before a capture
 GRAPH_WARMUP_TRIPS = 3
-_GRAPHS_LOCK = threading.Lock()
-#: device -> (lock held through a graphed loop, OrderedDict key -> _TripGraph)
-_GRAPHS: dict = {}
+#: the IRLS trip's graphs, one for each input shape
+_GRAPHS = GraphCache()
 
 
 def _use_graph(delay0: torch.Tensor, motion_opt: str) -> bool:
@@ -617,25 +612,17 @@ class _TripGraph:
                           self.ts, self.state, "irls", _unmarked)
 
     def capture(self) -> None:
-        """Warm up on a side stream, then capture a trip and its write
-        back into the state. Only this thread's capture is guarded
-        (`thread_local`): `parallel/mesh.py` runs a loop a device from
-        worker threads."""
-        dev = self.state.delay.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
+        """Warm up with GRAPH_WARMUP_TRIPS eager trips, then capture a
+        trip and its write back into the state (`utils/graphs.capture`)."""
+        def warmup():
             for _ in range(GRAPH_WARMUP_TRIPS):
                 self._trip()
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                for dst, src in zip(self.state, self._trip()):
-                    dst.copy_(src)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = graph
+
+        def trip():
+            for dst, src in zip(self.state, self._trip()):
+                dst.copy_(src)
+
+        (self.graph,) = capture_graphs(self.state.delay.device, warmup, [trip])
 
     def replay(self, st: _LoopState) -> _LoopState:
         count("sync.graph_replays")
@@ -651,14 +638,7 @@ def _graphed_trips(table, wins, var_k, centers, radius, st: _LoopState) -> _Loop
     final state."""
     inputs = _graph_inputs(table, wins, var_k, centers, radius)
     key = tuple((tuple(x.shape), x.dtype) for x in [*inputs, st.delay, st.M])
-    dev = st.delay.device
-    with _GRAPHS_LOCK:
-        lock, graphs = _GRAPHS.setdefault(dev, (threading.Lock(), OrderedDict()))
-    with lock:
-        tg = graphs.pop(key, None) or _TripGraph(inputs, st)
-        graphs[key] = tg
-        while len(graphs) > GRAPHS_PER_DEVICE:
-            graphs.popitem(last=False)
+    with _GRAPHS.use(st.delay.device, key, lambda: _TripGraph(inputs, st)) as tg:
         tg.load(inputs, st)
         if tg.graph is None:
             count("sync.graph_captures")

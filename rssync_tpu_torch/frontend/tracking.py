@@ -32,6 +32,16 @@ pixel by one u8 level on an H100.
 Entry points take their device from the frames tensor. Frames are
 (T, H, W) uint8 or float32; points are (N, 2) xy pixels.
 
+The block runner of `track_clip` and `track_frames` (`_track_blocks`)
+makes the grid's device forms (`GridForms`) and its rays once a call,
+so a block copies nothing from the host. On a CUDA device a block's
+~570 small kernels then have fixed shapes and no host read, so each
+stage (pyramid, coarse stage, LK levels) is captured once as a CUDA
+graph, kept per device and block shape, and replayed a block: the same
+kernels in the same order on the same values, so the tracks are
+bit-equal to the eager block's. The CPU, and the other entry points,
+run the blocks eagerly.
+
 Video decode (cv2 on the host, imported only where frames are decoded)
 feeds `track_frames`, the tracking stage of the recipe pipeline:
 `VideoSource` (raw-luma fast path), the decode-ahead `FrameFeed`
@@ -46,7 +56,7 @@ import math
 import threading
 from collections import deque
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -56,10 +66,14 @@ from rssync_tpu_torch.ops import lens as lens_ops
 from rssync_tpu_torch.ops.strips import (
     LANE,
     STRIP_ROWS,
+    captured_launches,
+    count_replay,
     gather_blocks,
     gather_strips,
     strip_path_ok,
 )
+from rssync_tpu_torch.utils.graphs import GraphCache
+from rssync_tpu_torch.utils.graphs import capture as capture_graphs
 from rssync_tpu_torch.utils.timing import count, recording_on, span
 
 LK_RADIUS = 10  # 21x21 window
@@ -207,13 +221,8 @@ def _stored_dims(h: int, w: int, kind: str | None) -> tuple[int, int]:
 def _needed_levels(levels: int, iters: int, radius: int) -> list[int]:
     """The pyramid levels the schedule reads: the fine-plan levels plus
     the two coarse-init levels ({0, 2, 5, 7} at 2704x2028)."""
-    plan = _fine_plan(levels, iters, radius)
-    need = {lvl for lvl, _it, _m, _r in plan}
-    entry = plan[0][0]
-    if levels > entry + 1:
-        lvl_glob = levels - 1
-        need |= {max(entry + 1, lvl_glob - 2), lvl_glob}
-    return sorted(need)
+    need = {lvl for lvl, _it, _m, _r in _fine_plan(levels, iters, radius)}
+    return sorted(need | set(_coarse_levels(levels, iters, radius) or ()))
 
 
 def _cast_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -236,27 +245,33 @@ def build_pyramid_sparse(
     'fine' | 'lane' | None}, see _stored_dims) every level is emitted
     with its storage padding folded into the weights. Returns {level:
     (B, h_l, w_l)} in the input dtype."""
-    store = img.dtype
-    H0, W0 = logical_hw if logical_hw is not None else img.shape[-2:]
-    pad_plan = pad_plan or {}
+    logical_hw = logical_hw if logical_hw is not None else img.shape[-2:]
+    weights = _pyramid_weights(img.shape[-2:], logical_hw, need, pad_plan or {}, img.device)
     pyr: dict[int, torch.Tensor] = {}
-    prev_lvl, prev = 0, img
-    prev_hw = (H0, W0)
+    prev = img
     for lvl in sorted(set(need)):
-        if lvl == prev_lvl:
-            pyr[lvl] = prev
-        else:
-            h, w = prev_hw
-            hd = _lvl_size(h, prev_lvl, lvl)
-            wd = _lvl_size(w, prev_lvl, lvl)
-            hs, ws = _stored_dims(hd, wd, pad_plan.get(lvl))
-            R = _down_weights(h, prev_lvl, lvl, prev.shape[-2], hs, img.device)
-            C = _down_weights(w, prev_lvl, lvl, prev.shape[-1], ws, img.device)
+        if lvl in weights:
+            R, C = weights[lvl]
             x = prev.to(torch.bfloat16).to(torch.float64)
-            pyr[lvl] = _cast_like(torch.matmul(torch.matmul(R, x), C.T), store)
-            prev_hw = (hd, wd)
-        prev_lvl, prev = lvl, pyr[lvl]
+            prev = _cast_like(torch.matmul(torch.matmul(R, x), C.T), img.dtype)
+        pyr[lvl] = prev
     return pyr
+
+
+def _pyramid_weights(stored_hw, logical_hw, need, pad_plan: dict,
+                     device: torch.device) -> dict[int, tuple[torch.Tensor, torch.Tensor]]:
+    """{level: (R, C)}: the row and column weights `build_pyramid_sparse`
+    takes each needed level > 0 from the previous needed level with.
+    stored_hw / logical_hw: level 0's storage and unpadded dims."""
+    out = {}
+    prev_lvl, (hs, ws), (h, w) = 0, tuple(stored_hw), tuple(logical_hw)
+    for lvl in sorted(set(need) - {0}):
+        hd, wd = _lvl_size(h, prev_lvl, lvl), _lvl_size(w, prev_lvl, lvl)
+        hs_d, ws_d = _stored_dims(hd, wd, pad_plan.get(lvl))
+        out[lvl] = (_down_weights(h, prev_lvl, lvl, hs, hs_d, device),
+                    _down_weights(w, prev_lvl, lvl, ws, ws_d, device))
+        prev_lvl, (hs, ws), (h, w) = lvl, (hs_d, ws_d), (hd, wd)
+    return out
 
 
 def _edge_pad(x: torch.Tensor, top: int, bottom: int, left: int,
@@ -364,6 +379,29 @@ def _extract_patches(imgs: torch.Tensor, pts: torch.Tensor, size: int) -> torch.
     return _sample_windows(wide, frac[..., 1], rem + frac[..., 0], size, size)
 
 
+def _patch_index(origins: np.ndarray, size: int, hw: tuple[int, int],
+                 device: torch.device) -> tuple:
+    """The gather index of `_extract_patches_static`: (N, size) int64 rows
+    and columns of the patches at host INTEGER origins (N, 2), clamped to
+    an (H, W) image (edge replication), on `device`, and (H, W)."""
+    H, W = hw
+    xs = origins[:, 0].astype(np.int64)
+    ys = origins[:, 1].astype(np.int64)
+    ar = np.arange(size)
+    rows = torch.from_numpy(np.clip(ys[:, None] + ar, 0, H - 1)).to(device)
+    cols = torch.from_numpy(np.clip(xs[:, None] + ar, 0, W - 1)).to(device)
+    return rows, cols, (H, W)
+
+
+def _gather_patches(imgs: torch.Tensor, index: tuple) -> torch.Tensor:
+    """(B, N, size, size) float32 patches of imgs (B, H, W) at a
+    `_patch_index`, made for images of imgs' (H, W)."""
+    rows, cols, hw = index
+    if tuple(imgs.shape[-2:]) != hw:
+        raise ValueError(f"patch index for {hw} images, got {tuple(imgs.shape[-2:])}")
+    return imgs[:, rows[:, :, None], cols[:, None, :]].to(_F32)
+
+
 def _extract_patches_static(imgs: torch.Tensor, origins: np.ndarray,
                             size: int) -> torch.Tensor:
     """(B, N, size, size) float32 patches at host INTEGER origins (N, 2),
@@ -371,31 +409,23 @@ def _extract_patches_static(imgs: torch.Tensor, origins: np.ndarray,
     integer origins the bilinear taps of `_extract_patches` are one-hot,
     so this is the same values by one index gather (rssync_tpu selects
     them with a one-hot matmul, exact in its bf16/f32 passes)."""
-    H, W = imgs.shape[-2:]
-    xs = origins[:, 0].astype(np.int64)
-    ys = origins[:, 1].astype(np.int64)
-    ar = np.arange(size)
-    rows = torch.from_numpy(np.clip(ys[:, None] + ar, 0, H - 1)).to(imgs.device)
-    cols = torch.from_numpy(np.clip(xs[:, None] + ar, 0, W - 1)).to(imgs.device)
-    return imgs[:, rows[:, :, None], cols[:, None, :]].to(_F32)
+    return _gather_patches(imgs, _patch_index(origins, size, imgs.shape[-2:], imgs.device))
 
 
-def _lk_templates(img_a: torch.Tensor, pts_level, radius: int) -> dict:
+def _lk_templates(img_a: torch.Tensor, pts_level, radius: int,
+                  index: tuple | None = None) -> dict:
     """Template patches, gradients and Gauss-Newton normal-matrix terms
     of every frame in img_a at pts_level: the img_a half of an LK level.
 
     img_a: (B, H, Wp) lane-padded level images. pts_level: (N, 2) or
-    (B, N, 2); a host np.ndarray of integers takes the static-template
-    route. Returns a dict of (B, N, ...) tensors."""
+    (B, N, 2). index: the `_patch_index` of pts_level - (radius + 1),
+    which `grid_forms` makes where the points are whole numbers: the
+    patches are then gathered there (the static-template route), else
+    sampled bilinearly. Returns a dict of (B, N, ...) tensors."""
     w = 2 * radius + 1
     B = img_a.shape[0]
-    static_grid = (
-        isinstance(pts_level, np.ndarray)
-        and pts_level.ndim == 2
-        and bool(np.all(pts_level == np.round(pts_level)))
-    )
-    if static_grid:
-        patch_a = _extract_patches_static(img_a, pts_level - (radius + 1), w + 2)
+    if index is not None:
+        patch_a = _gather_patches(img_a, index)
     else:
         p = torch.as_tensor(pts_level, dtype=_F32, device=img_a.device)
         if p.dim() == 2:
@@ -418,13 +448,13 @@ def _lk_templates(img_a: torch.Tensor, pts_level, radius: int) -> dict:
 
 
 def _lk_level(img_a, img_b, pts_level, guess, radius: int, iters: int,
-              margin: int, edges: bool = False):
+              margin: int, edges: bool = False, index: tuple | None = None):
     """One pyramid level of iterative LK for all (pair, point).
     img_a/img_b: (B, H, Wp) lane-padded level images; pts_level (N, 2)
     or (B, N, 2) at this level's scale; guess (B, N, 2) incoming
-    displacement. Returns (B, N, 2) (and, with edges, `_lk_iterate`'s
-    edge counts)."""
-    tmpl = _lk_templates(img_a, pts_level, radius)
+    displacement; index: the templates' (`_lk_templates`). Returns
+    (B, N, 2) (and, with edges, `_lk_iterate`'s edge counts)."""
+    tmpl = _lk_templates(img_a, pts_level, radius, index)
     return _lk_iterate(img_b, pts_level, guess, tmpl, radius, iters, margin, edges=edges)
 
 
@@ -664,60 +694,123 @@ def _fine_plan(levels: int, iters: int, radius: int) -> list[tuple[int, int, int
     return [(0, min(iters, 8), MARGIN_ENTRY, radius)]
 
 
-def _lk_core(pyr_pairs: dict, pts, levels: int, radius: int, iters: int,
+def _coarse_levels(levels: int, iters: int, radius: int) -> tuple[int, int] | None:
+    """The coarse stage's (volume, global) levels, or None where the plan
+    has no coarse stage: the pyramid reaches no further than the level
+    below the fine plan's entry level."""
+    entry = _fine_plan(levels, iters, radius)[0][0]
+    if levels <= entry + 1:
+        return None
+    lvl_glob = levels - 1
+    return max(entry + 1, lvl_glob - 2), lvl_glob
+
+
+@dataclass(eq=False)
+class _BlockState:
+    """A block through its stages (`_block_stages`): the inputs, then
+    each stage's result. hw, level0, edges: `_lk_core`'s logical_hw,
+    level0 and edges; stack: the block's storage-padded (T, H, W)
+    frames, None where the pairs are given; pairs: {level: (img_a,
+    img_b)}; d: the coarse stage's (B, N, 2) level-0 px; out: the LK
+    levels' positions (`_lk_core`'s return)."""
+
+    grid: GridForms
+    levels: int
+    radius: int
+    iters: int
+    hw: tuple[int, int] | None
+    stack: torch.Tensor | None = None
+    pairs: dict | None = None
+    level0: tuple | None = None
+    edges: bool = False
+    d: torch.Tensor | None = None
+    out: object = None
+
+
+def _pyramid_stage(b: _BlockState) -> None:
+    """One pyramid per frame of the stack, as the {level: (img_a, img_b)}
+    pairs of its consecutive frames."""
+    need, plan, _ = _level_plan(b.levels, b.iters, b.radius)
+    pyr = build_pyramid_sparse(b.stack, b.levels, need, b.hw, plan)
+    b.pairs = {l: (pyr[l][:-1], pyr[l][1:]) for l in need}
+
+
+def _coarse_stage(b: _BlockState) -> None:
+    """`_coarse_init` at the plan's volume and global levels: d."""
+    lvl_vol, lvl_glob = _coarse_levels(b.levels, b.iters, b.radius)
+    pairs = {lvl: b.pairs[lvl] for lvl in {lvl_glob, lvl_vol}}
+    hg = b.pairs[lvl_glob][0].shape[-2:]
+    D_glob = max(2, min(hg) // 3)
+    glob_hw = None
+    if b.hw is not None and b.levels >= DEEP_LEVELS:
+        glob_hw = tuple(_lvl_size(n, 0, lvl_glob) for n in b.hw)
+    b.d = _coarse_init(pairs, lvl_vol, lvl_glob, b.grid.pts, D_glob, glob_hw)
+
+
+def _lk_stage(b: _BlockState) -> None:
+    """The LK levels from d, or from zero motion where it is None: out."""
+    plan = _fine_plan(b.levels, b.iters, b.radius)
+    entry = plan[0][0]
+    d = b.d
+    if d is None:
+        ref = b.level0[2] if b.level0 is not None else b.pairs[entry][0]
+        d = torch.zeros((ref.shape[0], *b.grid.pts.shape), dtype=_F32, device=ref.device)
+    edge = None
+    for lvl, it_l, m_l, r_l in plan:
+        want_edge = b.edges and lvl == entry
+        pts_l, index = b.grid.levels[lvl]
+        if lvl == 0 and b.level0 is not None:
+            clip, tmpl, fidx = b.level0
+            out = _lk_iterate(clip, pts_l, d, tmpl, r_l, it_l, m_l, fidx=fidx, edges=want_edge)
+            d, edge = out if want_edge else (out, edge)
+            continue
+        scale = float(2**lvl)
+        out = _lk_level(b.pairs[lvl][0], b.pairs[lvl][1], pts_l, d / scale, r_l, it_l,
+                        m_l, edges=want_edge, index=index)
+        d, edge = out if want_edge else (out, edge)
+        d = d * scale
+    pos = b.grid.pts[None] + d
+    b.out = (pos, edge) if b.edges else pos
+
+
+def _block_stages(levels: int, iters: int, radius: int) -> list:
+    """A block's (span, stage) in order, each stage a function of its
+    `_BlockState`: the pyramid, the coarse stage where the plan has one,
+    the LK levels. The eager block runs them (`_run_stages`), a
+    `_BlockGraph` captures them."""
+    coarse = [("track.coarse", _coarse_stage)] if _coarse_levels(levels, iters, radius) else []
+    return [("track.pyramid", _pyramid_stage), *coarse, ("track.lk", _lk_stage)]
+
+
+def _run_stages(b: _BlockState, stages: list):
+    """Run stages on b eagerly, each in its span; returns b.out."""
+    for name, stage in stages:
+        with span(name):
+            stage(b)
+    return b.out
+
+
+def _lk_core(pyr_pairs: dict, grid: "GridForms", levels: int, radius: int, iters: int,
              level0: tuple | None = None, logical_hw: tuple[int, int] | None = None,
              edges: bool = False):
     """Tracker body over per-level (img_a, img_b) batches, keyed by level
-    (only the levels of `_needed_levels` exist). pts: (N, 2) host float32
-    grid (static templates) or a tensor. level0: (clip, templates,
-    fidx): level 0 then searches the whole storage-padded clip at
-    per-pair frame indices against templates made beforehand (the
-    hybrid structure), and pyr_pairs needs no level 0. logical_hw: the
-    level-0 (H, W) the levels were built from. In the deep plan the
-    global shift then compares the coarsest level's own pixels only: at
-    2704x2028 that level is 16 x 21 px stored 16 x 128, and over the
-    107 columns of edge padding the SAD picked shifts a level-7 px or
-    more off under 30 fps motion, out of the cost volume's reach. The
-    smaller plans keep rssync_tpu's SAD over the stored level. Returns
-    (B, N, 2) positions; with edges, also the entry level's (B,) edge
-    counts (`_lk_iterate`)."""
-    plan = _fine_plan(levels, iters, radius)
-    entry = plan[0][0]
-    ref = level0[2] if level0 is not None else pyr_pairs[entry][0]
-    B, dev = ref.shape[0], ref.device
-
-    if levels > entry + 1:
-        lvl_glob = levels - 1
-        lvl_vol = max(entry + 1, lvl_glob - 2)
-        pairs = {lvl: pyr_pairs[lvl] for lvl in {lvl_glob, lvl_vol}}
-        hg = pyr_pairs[lvl_glob][0].shape[-2:]
-        D_glob = max(2, min(hg) // 3)
-        glob_hw = None
-        if logical_hw is not None and levels >= DEEP_LEVELS:
-            glob_hw = tuple(_lvl_size(n, 0, lvl_glob) for n in logical_hw)
-        with span("track.coarse"):
-            d = _coarse_init(pairs, lvl_vol, lvl_glob, pts, D_glob, glob_hw)
-    else:
-        d = torch.zeros((B, *pts.shape), dtype=_F32, device=dev)
-
-    edge = None
-    with span("track.lk"):
-        for lvl, it_l, m_l, r_l in plan:
-            want_edge = edges and lvl == entry
-            if lvl == 0 and level0 is not None:
-                clip, tmpl, fidx = level0
-                out = _lk_iterate(clip, pts, d, tmpl, r_l, it_l, m_l, fidx=fidx, edges=want_edge)
-                d, edge = out if want_edge else (out, edge)
-                continue
-            scale = float(2**lvl)
-            out = _lk_level(
-                pyr_pairs[lvl][0], pyr_pairs[lvl][1], pts / scale, d / scale,
-                r_l, it_l, m_l, edges=want_edge,
-            )
-            d, edge = out if want_edge else (out, edge)
-            d = d * scale
-        pos = torch.as_tensor(pts, dtype=_F32, device=dev)[None] + d
-        return (pos, edge) if edges else pos
+    (only the levels of `_needed_levels` exist): the block's stages after
+    the pyramid (`_block_stages`: spans `track.coarse`, `track.lk`).
+    grid: the points' `GridForms`.
+    level0: (clip, templates, fidx): level 0 then searches the whole
+    storage-padded clip at per-pair frame indices against templates
+    made beforehand (the hybrid structure), and pyr_pairs needs no level
+    0. logical_hw: the level-0 (H, W) the levels were built from. In the
+    deep plan the global shift then compares the coarsest level's own
+    pixels only: at 2704x2028 that level is 16 x 21 px stored 16 x 128,
+    and over the 107 columns of edge padding the SAD picked shifts a
+    level-7 px or more off under 30 fps motion, out of the cost volume's
+    reach. The smaller plans keep rssync_tpu's SAD over the stored level.
+    Returns (B, N, 2) positions; with edges, also the entry level's (B,)
+    edge counts (`_lk_iterate`)."""
+    b = _BlockState(grid, levels, radius, iters, logical_hw, pairs=pyr_pairs, level0=level0,
+                    edges=edges)
+    return _run_stages(b, _block_stages(levels, iters, radius)[1:])
 
 
 def _level_plan(levels: int, iters: int, radius: int):
@@ -731,27 +824,26 @@ def _lk_pairs_core(imgs_a, imgs_b, pts, levels: int, radius: int, iters: int) ->
     """Track pts from imgs_a[i] to imgs_b[i]: (B, H, W) x2 -> (B, N, 2)."""
     need, plan, fine0 = _level_plan(levels, iters, radius)
     hw = tuple(imgs_a.shape[-2:])
+    grid = grid_forms(pts, hw, levels, radius, iters, imgs_a.device)
     with span("track.pyramid"):
         pyr_a = build_pyramid_sparse(_pad_lanes(imgs_a, fine0), levels, need, hw, plan)
         pyr_b = build_pyramid_sparse(_pad_lanes(imgs_b, fine0), levels, need, hw, plan)
-    return _lk_core({l: (pyr_a[l], pyr_b[l]) for l in need}, pts, levels, radius, iters,
+    return _lk_core({l: (pyr_a[l], pyr_b[l]) for l in need}, grid, levels, radius, iters,
                     logical_hw=hw)
 
 
-def _lk_video_core(frames, pts, levels: int, radius: int, iters: int,
+def _lk_video_core(frames, grid: "GridForms", levels: int, radius: int, iters: int,
                    logical_hw: tuple[int, int] | None = None, edges: bool = False):
     """Track consecutive pairs of a frame block with one pyramid per
-    frame (each interior frame serves two pairs). logical_hw: the
-    unpadded (H, W) when `frames` already carry the level-0 storage
-    padding; otherwise frames are padded here. edges: as `_lk_core`."""
-    need, plan, fine0 = _level_plan(levels, iters, radius)
+    frame (each interior frame serves two pairs; span `track.pyramid`).
+    logical_hw: the unpadded (H, W) when `frames` already carry the
+    level-0 storage padding; otherwise frames are padded here. edges:
+    as `_lk_core`."""
     if logical_hw is None:
         logical_hw = tuple(frames.shape[-2:])
-        frames = _pad_lanes(frames, fine0)
-    with span("track.pyramid"):
-        pyr = build_pyramid_sparse(frames, levels, need, logical_hw, plan)
-    pairs = {l: (pyr[l][:-1], pyr[l][1:]) for l in need}
-    return _lk_core(pairs, pts, levels, radius, iters, logical_hw=logical_hw, edges=edges)
+        frames = _pad_lanes(frames, _level_plan(levels, iters, radius)[2])
+    b = _BlockState(grid, levels, radius, iters, logical_hw, stack=frames, edges=edges)
+    return _run_stages(b, _block_stages(levels, iters, radius))
 
 
 def _check_prepadded(frames, logical_hw, levels, radius, iters) -> None:
@@ -771,6 +863,59 @@ def _host_grid(pts, width: int, height: int, grid_step: int | None) -> np.ndarra
     if isinstance(pts, torch.Tensor):
         pts = pts.detach().cpu().numpy()
     return np.asarray(pts, np.float32)
+
+
+@dataclass(eq=False)
+class GridForms:
+    """A point set with the device forms the tracker reads, made once a
+    call (`grid_forms`) so a block copies nothing from the host.
+
+    grid: the points as given (an (N, 2) host array: emission's
+    rolling-shutter times read it). pts: (N, 2) float32 on the device.
+    levels: {fine level: (pts / 2**level, (N, 2) float32 on the device;
+    its templates' `_patch_index`, None off the static-template route)}.
+    key: the host grid's bytes, (H, W) and the plan, which the block
+    graphs are cached under (None for points given on the device).
+    `rays(lens)` lifts the grid once a lens."""
+
+    grid: object
+    pts: torch.Tensor
+    levels: dict
+    key: tuple | None
+    _rays: tuple | None = None
+
+    def rays(self, lens: lens_ops.Lens) -> np.ndarray:
+        """(N, 3) float64 host rays of the grid under `lens`, lifted and
+        read once (spans `emit.lift`, `emit.read`)."""
+        if self._rays is None or self._rays[0] != lens:
+            self._rays = (lens, _lift_grid(lens, self.pts))
+        return self._rays[1]
+
+
+def grid_forms(pts, hw: tuple[int, int], levels: int, radius: int, iters: int,
+               device) -> GridForms:
+    """`GridForms` of pts at the plan of (H, W) frames. An (N, 2) host
+    array is uploaded once a form: its per-level points are divided on
+    the host, and a level where they are whole numbers takes the
+    static-template route with its index made here, for the level's
+    storage dims. Points given as a tensor stay on the dynamic route,
+    divided on the device."""
+    plan = _fine_plan(levels, iters, radius)
+    if isinstance(pts, torch.Tensor):
+        p = torch.as_tensor(pts, dtype=_F32, device=device)
+        return GridForms(pts, p, {lvl: (p / float(2**lvl), None) for lvl, *_ in plan}, None)
+    host = np.asarray(pts, np.float32)
+    kinds = _level_plan(levels, iters, radius)[1]
+    at = {}
+    for lvl, _it, _m, r_l in plan:
+        p = host / float(2**lvl)
+        index = None
+        if bool(np.all(p == np.round(p))):
+            dims = _stored_dims(_lvl_size(hw[0], 0, lvl), _lvl_size(hw[1], 0, lvl), kinds[lvl])
+            index = _patch_index(p - (r_l + 1), 2 * r_l + 3, dims, device)
+        at[lvl] = (torch.as_tensor(p, dtype=_F32, device=device), index)
+    key = (host.tobytes(), host.shape, tuple(hw), levels, radius, iters)
+    return GridForms(pts, torch.as_tensor(host, device=device), at, key)
 
 
 # ---------------------------------------------------------------------------
@@ -802,19 +947,23 @@ def lk_track_video(frames: torch.Tensor, pts=None, levels: int | None = None,
                    grid_step: int | None = None,
                    logical_hw: tuple[int, int] | None = None, edges: bool = False):
     """Track one point set across all consecutive pairs of a frame block:
-    (T, H, W) -> (T-1, N, 2). pts=None takes the reference grid
-    (grid_step, by default from the width). logical_hw: the unpadded
-    (H, W) when frames are pre-padded (pad_frames_host). With edges,
-    returns (tracks, (T-1,) int64 counts of each pair's points whose
-    entry-level LK iterate ended within 1 px of its margin), the counts
-    left on the device."""
+    (T, H, W) -> (T-1, N, 2), eagerly. pts=None takes the reference grid
+    (grid_step, by default from the width); pts may also be the
+    `GridForms` of the grid at these frames' plan (`grid_forms`), which
+    are otherwise made here. logical_hw: the unpadded (H, W) when frames
+    are pre-padded (pad_frames_host). With edges, returns (tracks, (T-1,)
+    int64 counts of each pair's points whose entry-level LK iterate ended
+    within 1 px of its margin), the counts left on the device."""
     H, W = logical_hw if logical_hw is not None else frames.shape[1:3]
     if levels is None:
         levels = auto_levels(H, W)
     if logical_hw is not None:
         _check_prepadded(frames, logical_hw, levels, radius, iters)
-    return _lk_video_core(frames, _host_grid(pts, W, H, grid_step), levels, radius,
-                          iters, logical_hw=logical_hw, edges=edges)
+    if not isinstance(pts, GridForms):
+        pts = grid_forms(_host_grid(pts, W, H, grid_step), (H, W), levels, radius, iters,
+                         frames.device)
+    return _lk_video_core(frames, pts, levels, radius, iters, logical_hw=logical_hw,
+                          edges=edges)
 
 
 def lk_track_video_chunked(frames: torch.Tensor, pts=None, chunk: int = 16,
@@ -848,24 +997,26 @@ def lk_track_video_chunked(frames: torch.Tensor, pts=None, chunk: int = 16,
         frames = _pad_lanes(frames, _level_plan(levels, iters, radius)[2])
     else:
         _check_prepadded(frames, logical_hw, levels, radius, iters)
+    grid = grid_forms(pts, (H, W), levels, radius, iters, frames.device)
     need, pad_plan, fine0 = _level_plan(levels, iters, radius)
     plan = _fine_plan(levels, iters, radius)
     if (hybrid and fine0 and plan[-1][0] == 0 and strip_path_ok(frames, len(pts))
-            and bool(np.all(pts == np.round(pts)))):
+            and grid.levels[0][1] is not None):
         small = [lvl for lvl in need if lvl > 0]
         pyr = build_pyramid_sparse(frames, levels, small, (H, W), pad_plan)
-        tmpl0 = _lk_templates(frames, pts, plan[-1][3])
+        pts0, index0 = grid.levels[0]
+        tmpl0 = _lk_templates(frames, pts0, plan[-1][3], index0)
         outs = []
         for s in range(0, T - 1, chunk):
             pairs = {lvl: (pyr[lvl][s : s + chunk], pyr[lvl][s + 1 : s + chunk + 1])
                      for lvl in small}
             tmpl = {k: v[s : s + chunk] for k, v in tmpl0.items()}
             fidx = torch.arange(s + 1, s + 1 + chunk, dtype=torch.int32, device=frames.device)
-            outs.append(_lk_core(pairs, pts, levels, radius, iters, (frames, tmpl, fidx),
+            outs.append(_lk_core(pairs, grid, levels, radius, iters, (frames, tmpl, fidx),
                                  logical_hw=(H, W)))
     else:
         outs = [
-            _lk_video_core(frames[s : s + chunk + 1], pts, levels, radius, iters,
+            _lk_video_core(frames[s : s + chunk + 1], grid, levels, radius, iters,
                            logical_hw=(H, W))
             for s in range(0, T - 1, chunk)
         ]
@@ -899,6 +1050,17 @@ def _f64(x: torch.Tensor) -> np.ndarray:
     return x.detach().to(torch.float64).cpu().numpy()
 
 
+def _lift_grid(lens: lens_ops.Lens, pts_t: torch.Tensor) -> np.ndarray:
+    """The grid's (N, 3) float64 host rays from its (N, 2) float32
+    device points: the lift enqueued (span `emit.lift`), then read
+    (span `emit.read`, count `host_reads`)."""
+    with span("emit.lift"):
+        lifted = lens_ops.lift_points(lens, pts_t)
+    with span("emit.read"):
+        count("host_reads")
+        return _f64(lifted)
+
+
 def emit_track_result(problem, lens: lens_ops.Lens, pts: np.ndarray,
                       pts_t: torch.Tensor, height: int, frame_idx: int, tracked,
                       ts_cur: float, ts_nxt: float) -> None:
@@ -919,7 +1081,9 @@ def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
     """Feed a block of P consecutive pairs into `problem`: the grid's
     rays are lifted once, the tracked endpoints of all pairs in one call
     (undistortion is elementwise, so each pair's rays equal
-    `emit_track_result`'s). tracked: (P, N, 2) positions in frames
+    `emit_track_result`'s). pts: the (N, 2) host grid, or its
+    `GridForms`, whose rays (`GridForms.rays`, lifted once a lens) are
+    then not lifted again. tracked: (P, N, 2) positions in frames
     frame_idx[i] + 1; frame_idx: (P,) index of each pair's first frame;
     frame_ts: (P + 1,) seconds of the P + 1 frames. edge_points: the
     pairs' (P,) device counts of `lk_track_video(edges=True)`, read in
@@ -928,16 +1092,15 @@ def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
 
     Spans: `emit.lift` around each lift as enqueued (count
     `lift_launches`, one a kernel launch: none on the CPU), `emit.read`
-    around the three host reads (each waits for the card), `emit.set`
-    around the host intake, all inside `track.emit`."""
+    around the host reads (each waits for the card; the grid's, where
+    it is lifted here, then the tracked points' two), `emit.set` around
+    the host intake, all inside `track.emit`."""
     P, N = tracked.shape[:2]
     with span("track.emit"):
-        with span("emit.lift"):
-            pts_t = torch.as_tensor(pts, dtype=_F32, device=tracked.device)
-            lifted_a = lens_ops.lift_points(lens, pts_t)
-        with span("emit.read"):
-            count("host_reads")
-            rays_a = _f64(lifted_a)
+        if isinstance(pts, GridForms):
+            rays_a, pts = pts.rays(lens), pts.grid
+        else:
+            rays_a = _lift_grid(lens, torch.as_tensor(pts, dtype=_F32, device=tracked.device))
         with span("emit.lift"):
             lifted_b = lens_ops.lift_points(lens, tracked.reshape(-1, 2).to(_F32))
         with span("emit.read"):
@@ -959,26 +1122,112 @@ def emit_track_block(problem, lens: lens_ops.Lens, pts: np.ndarray,
     return n_edge
 
 
+#: the tracker block's graphs, one for each grid and block shape
+_BLOCK_GRAPHS = GraphCache()
+
+
+def _use_block_graph(stack: torch.Tensor) -> bool:
+    """Whether `_track_blocks` replays a captured block: on a CUDA device."""
+    return stack.is_cuda
+
+
+class _BlockGraph:
+    """A tracker block (`_lk_video_core` with edge counts, at the default
+    radius and iterations) captured as one CUDA graph a stage
+    (`_block_stages`), in order, into one memory pool, over a static
+    stack and the grid's forms of the call that made it. A replay runs
+    the same kernels in the same order on the same values as the eager
+    block, so its tracks and counts are bit-equal."""
+
+    def __init__(self, stack: torch.Tensor, grid: GridForms, hw: tuple[int, int],
+                 levels: int):
+        need, plan, _ = _level_plan(levels, LK_ITERS, LK_RADIUS)
+        # the graphs read the pyramid's weights: held as long as they are
+        self.weights = _pyramid_weights(stack.shape[-2:], hw, need, plan, stack.device)
+        self.block = _BlockState(grid, levels, LK_RADIUS, LK_ITERS, hw,
+                                 stack=torch.empty_like(stack), edges=True)
+        self.stages = _block_stages(levels, LK_ITERS, LK_RADIUS)
+        self.graphs: list = []
+        #: the shapes of K3's launches in a replay (`captured_launches`)
+        self.k3: list = []
+
+    def capture(self) -> None:
+        """Run the stages once eagerly, then capture each
+        (`utils/graphs.capture`), with the K3 launches the graphs hold."""
+        b = self.block
+
+        def warmup():
+            for _name, stage in self.stages:
+                stage(b)
+            b.pairs = b.d = b.out = None
+
+        with captured_launches() as k3:
+            self.graphs = capture_graphs(b.stack.device, warmup,
+                                         [partial(stage, b) for _name, stage in self.stages])
+        self.k3 = k3
+
+    def replay(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each stage's replay in its span (count `track.graph_replays`
+        a replay); copies of the (B, N, 2) tracks and (B,) edge counts."""
+        for (name, _stage), graph in zip(self.stages, self.graphs):
+            count("track.graph_replays")
+            with span(name):
+                graph.replay()
+        count_replay(self.k3)
+        return tuple(x.clone() for x in self.block.out)
+
+
+def _graphed_block(stack: torch.Tensor, grid: GridForms, hw: tuple[int, int],
+                   levels: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`lk_track_video(stack, grid, logical_hw=hw, edges=True)` as a
+    replay of the cached `_BlockGraph` for the stack's shape and the
+    grid's key (captured first where there is none: count
+    `track.graph_captures`, span `track.capture`)."""
+    key = (grid.key, tuple(stack.shape), stack.dtype)
+    with _BLOCK_GRAPHS.use(stack.device, key,
+                           lambda: _BlockGraph(stack, grid, hw, levels)) as bg:
+        bg.block.stack.copy_(stack)
+        if not bg.graphs:
+            count("track.graph_captures")
+            with span("track.capture"):
+                bg.capture()
+        return bg.replay()
+
+
 def _track_blocks(problem, lens: lens_ops.Lens, pts: np.ndarray, hw: tuple[int, int],
-                  blocks: Iterator[tuple[torch.Tensor, Sequence, Sequence]]) -> None:
+                  blocks: Iterator[tuple[torch.Tensor, Sequence, Sequence]],
+                  device) -> None:
     """The block loop of `track_clip` and `track_frames`: track each
     block that `blocks` yields and feed its pairs to
     `problem.set_track_result`. A block is (stack, frame_idx, frame_ts):
-    block + 1 storage-padded frames on the tracker's device, the first
-    frames of the P pairs it emits, and the P + 1 frames' seconds. pts:
-    the (N, 2) host grid; hw: the unpadded (H, W).
+    block + 1 storage-padded frames on `device`, the first frames of the
+    P pairs it emits, and the P + 1 frames' seconds. pts: the (N, 2)
+    host grid; hw: the unpadded (H, W).
+
+    The grid's `GridForms` and rays are made once, before the first
+    block: no block copies the grid from the host. On a CUDA device a
+    block is a replay of the captured `_BlockGraph` for its shape
+    (`_graphed_block`), which always counts the edge points; elsewhere
+    `lk_track_video` runs it eagerly.
 
     Up to TRACK_DEPTH blocks stay in flight: `emit_track_block` drains
     the oldest before the next block is pulled, so a source may reuse a
     block's host buffer TRACK_DEPTH blocks later.
 
-    Spans: `track.block` one pull (the source's spans), its enqueue
-    (`track.pyramid`, `track.coarse`, `track.lk`) and one drain
+    Spans: `track.grid` the forms and the grid's rays (`emit.lift`,
+    `emit.read`), then `track.block` one pull (the source's spans), its
+    enqueue (`track.pyramid`, `track.coarse`, `track.lk`; on a card,
+    counts `track.graph_replays` and, before a key's first replay,
+    `track.capture` and count `track.graph_captures`) and one drain
     (`track.emit`; counts `pairs` and, while recording,
     `lk_edge_points`: the drained pairs' points whose entry-level LK
     iterate ended within 1 px of its margin). A block is drained
     TRACK_DEPTH - 1 `track.block`s after its own; once the source is
     spent, one a `track.block`."""
+    levels = auto_levels(*hw)
+    with span("track.grid"):
+        grid = grid_forms(pts, hw, levels, LK_RADIUS, LK_ITERS, device)
+        grid.rays(lens)
     pending: deque = deque()
     done = False
     while pending or not done:
@@ -988,13 +1237,19 @@ def _track_blocks(problem, lens: lens_ops.Lens, pts: np.ndarray, hw: tuple[int, 
             if not done:
                 stack, frame_idx, frame_ts = blk
                 edges = recording_on()
-                out = lk_track_video(stack, pts, logical_hw=hw, edges=edges)
-                pending.append((frame_idx, frame_ts, *(out if edges else (out, None))))
+                if _use_block_graph(stack):
+                    _check_prepadded(stack, hw, levels, LK_RADIUS, LK_ITERS)
+                    tracked, edge = _graphed_block(stack, grid, hw, levels)
+                    out = (tracked, edge if edges else None)
+                else:
+                    out = lk_track_video(stack, grid, logical_hw=hw, edges=edges)
+                    out = out if edges else (out, None)
+                pending.append((frame_idx, frame_ts, *out))
             if pending and (done or len(pending) >= TRACK_DEPTH):
                 frame_idx, frame_ts, tracked, edge = pending.popleft()
                 n = len(frame_idx)
                 count("pairs", n)
-                args = (problem, lens, pts, tracked[:n], frame_idx, frame_ts, hw[0])
+                args = (problem, lens, grid, tracked[:n], frame_idx, frame_ts, hw[0])
                 if edge is None:
                     emit_track_block(*args)
                 else:
@@ -1035,7 +1290,7 @@ def track_clip(problem, lens: lens_ops.Lens, frames: torch.Tensor, frame_ts,
                     stack = _pad_lanes(frames.index_select(0, idx), fine0)
                 yield stack, np.arange(s, e), frame_ts[s : e + 1]
 
-    _track_blocks(problem, lens, grid_points(W, H, grid_step), (H, W), slices())
+    _track_blocks(problem, lens, grid_points(W, H, grid_step), (H, W), slices(), frames.device)
 
 
 # ---------------------------------------------------------------------------
@@ -1378,4 +1633,4 @@ def track_frames(problem, lens: lens_ops.Lens, video_path: str, frame_begin: int
                     break
                 carry = frames[-1:]
 
-    _track_blocks(problem, lens, pts, (height, width), uploads())
+    _track_blocks(problem, lens, pts, (height, width), uploads(), dev)

@@ -18,6 +18,10 @@ and column 128 * obx is 2 consecutive blocks of each of S rows.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+from typing import Iterator
+
 import torch
 
 from rssync_tpu_torch.ops import _kernels
@@ -27,10 +31,13 @@ LANE = 128
 #: the <= 7-row residual of quantizing its top row down to 8
 STRIP_ROWS = 40
 
-#: kernel launches, counted where the wrapper launches its kernel
+#: kernel launches, counted where the wrapper launches its kernel or a
+#: CUDA graph that holds it runs (`count_replay`)
 LAUNCHES = {"gather_strips": 0}
 #: the (T, Hp, Wp, B, N, dtype) shapes the kernel was launched at
 LAUNCH_SHAPES = {"gather_strips": set()}
+#: this thread's open `captured_launches` tally
+_CAPTURE = threading.local()
 
 _DTYPE_NAMES = {torch.uint8: "torch.uint8", torch.float32: "torch.float32"}
 
@@ -40,6 +47,27 @@ def reset_launch_counters() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         LAUNCH_SHAPES[name].clear()
+
+
+@contextmanager
+def captured_launches() -> Iterator[list]:
+    """A launch this thread records into a CUDA graph capture inside the
+    block does not run, so it is not counted in LAUNCHES: the yielded
+    list takes its shape instead, one a launch, for `count_replay` to
+    count each time the graph runs."""
+    prev = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally = []
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
+
+
+def count_replay(tally: list) -> None:
+    """Count the launches of one run of a graph: `captured_launches`'
+    tally of its capture."""
+    LAUNCHES["gather_strips"] += len(tally)
+    LAUNCH_SHAPES["gather_strips"].update(tally)
 
 
 def _block_rows(imgs: torch.Tensor, oy: torch.Tensor, obx: torch.Tensor,
@@ -151,8 +179,14 @@ def _launch(imgs, oyq, obx, fidx) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(
             f"gather_strips launch failed: {lib.gather_strips_error_string(rc).decode()}")
-    LAUNCHES["gather_strips"] += 1
-    LAUNCH_SHAPES["gather_strips"].add((T, Hp, Wp, B, N, _DTYPE_NAMES[imgs.dtype]))
+    shape = (T, Hp, Wp, B, N, _DTYPE_NAMES[imgs.dtype])
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_CAPTURE, "tally", None)
+        if tally is not None:
+            tally.append(shape)
+    else:
+        LAUNCHES["gather_strips"] += 1
+        LAUNCH_SHAPES["gather_strips"].add(shape)
     return out
 
 

@@ -28,7 +28,9 @@ RANGES, BLOCK = [(0, 3), (4, 9)], 4
 #: children of a track_clip block's pull and enqueue, in the order they
 #: open; the block it drains adds `track.emit`
 BLOCK_CHILDREN = ["track.slice", "track.pyramid", "track.coarse", "track.lk"]
-EMIT_CHILDREN = ["emit.lift", "emit.read", "emit.lift", "emit.read", "emit.set"]
+#: a drained block's: the tracked points' lift and reads, then the
+#: host intake (the grid's rays were lifted and read once, in `track.grid`)
+EMIT_CHILDREN = ["emit.lift", "emit.read", "emit.set"]
 
 
 class _Problem:
@@ -178,7 +180,8 @@ def test_track_clip_spans_and_tracks_bit_equal(clip):
     """Three blocks through the block runner: each pulled and enqueued in
     a `track.block` of its own, the first drained in the third's and the
     other two in one `track.block` each once the ranges are spent, their
-    `track.emit` and counts under the `track.block` that drains them."""
+    `track.emit` and counts under the `track.block` that drains them.
+    Before them, one `track.grid` lifts and reads the grid's rays."""
     off, on = _Problem(), _Problem()
     T.track_clip(off, clip.lens, clip.frames, clip.frame_ts, RANGES, block=BLOCK)
     with recording(context=3) as rec:
@@ -199,8 +202,12 @@ def test_track_clip_spans_and_tracks_bit_equal(clip):
         for e in (k for k in ks if k.name == "track.emit"):
             emit = _children(rec, e.id)
             assert [k.name for k in emit] == EMIT_CHILDREN
-            assert sum(k.counts.get("host_reads", 0) for k in emit) == 3
+            assert sum(k.counts.get("host_reads", 0) for k in emit) == 2
             assert all(not _children(rec, k.id) for k in emit)
+    (grid,) = [r for r in rec.records if r.name == "track.grid"]
+    assert grid.parent is None and grid.end_ns <= blocks[0].start_ns
+    assert [(k.name, k.counts) for k in _children(rec, grid.id)] == [
+        ("emit.lift", {}), ("emit.read", {"host_reads": 1})]
     assert rec.counted("pairs") == len(on.calls) == 8
     assert rec.counted("lk_edge_points") == 0
 
@@ -254,8 +261,9 @@ def test_lk_edge_points_equal_a_direct_count_and_reads_stay_three(clip, monkeypa
     margin - 2 px from its guess, taken directly from the iterates: here
     a textured pair moved (3, -2) px, with the coarse stage's guess put
     30 px (7.5 entry-level px) off for every other point, so LK runs to
-    its margin there. The count rides on the tracked points' read: 3
-    host reads a block."""
+    its margin there. The count rides on the tracked points' read: 2
+    host reads a block, and one for the grid's rays, read once before
+    the blocks."""
     img = _smooth_texture((300, 380), 4)
     a, b = img[20:260, 20:340], img[22:262, 17:337]  # b(x) = a(x - (3, -2))
     frames = torch.as_tensor(np.stack([a, b] * 5).round().astype(np.uint8))
@@ -286,10 +294,11 @@ def test_lk_edge_points_equal_a_direct_count_and_reads_stay_three(clip, monkeypa
     want = [int(d[: blk.counts["pairs"]].sum()) for d, blk in zip(direct, blocks)]
     assert [blk.counts["lk_edge_points"] for blk in blocks] == want
     assert min(want) > 0  # up to half of each pair's 35 points
+    reads = [r for r in rec.records if r.counts.get("host_reads")]
     for blk in blocks:
-        reads = [r for r in rec.records if r.counts.get("host_reads")]
         assert sum(r.counts["host_reads"] for r in reads
-                   if blk.start_ns <= r.start_ns <= blk.end_ns) == 3
+                   if blk.start_ns <= r.start_ns <= blk.end_ns) == 2
+    assert rec.counted("host_reads") == 2 * len(blocks) + 1
 
 
 def test_lk_edge_points_read_0_on_a_60fps_pair():
