@@ -8,6 +8,11 @@ configurations state (its tracks, its rays and its delays), judged by
 the same comparison as the program's answers, over every window of the
 cell. Prints one JSON line per seed. The program's own readings are the
 `checks` of its runs (`portbench.run`).
+
+The reference is the truth of the scene the cell's configuration names
+(the key `model` of its `scene` section: `reference/<model>.py` under
+the cell's checkout; without the key, `reference/truth.py`), found by
+`harness.scene_truth` as the program's runs find it.
 """
 
 from __future__ import annotations
@@ -20,7 +25,6 @@ import numpy as np
 import torch
 
 from portbench import harness
-from portbench.reference import truth
 
 
 def control_requests(cell: harness.Cell, clip: harness.Clip,
@@ -28,15 +32,16 @@ def control_requests(cell: harness.Cell, clip: harness.Clip,
     """The reference's answers in `dtype`, shaped as the program's: every
     window once, in requests of the mix's size."""
     cfg = cell.config
+    ref = harness.scene_truth(cfg, cell.root)
     window = int(cfg["recipe"]["sync_window"])
     lens = vars(clip.lens)
-    grid = truth.grid_points(clip.width, clip.height, int(cfg["tracker"]["grid_step"]))
+    grid = ref.grid_points(clip.width, clip.height, int(cfg["tracker"]["grid_step"]))
     n_w = len(clip.syncpoints)
     frames_a = (clip.syncpoints[:, None] + np.arange(window + 1)[None]).reshape(-1)
-    q = truth.true_tracks(clip.trajectory, lens, grid, frames_a, clip.fps, clip.height, dtype)
-    rays = truth.undistort_ray(lens, q).reshape(n_w, window + 1, len(grid), 3)
-    delays = truth.window_delays(clip.syncpoints, clip.fps, window, clip.engine_delay,
-                                 clip.drift, dtype)
+    q = ref.true_tracks(clip.trajectory, lens, grid, frames_a, clip.fps, clip.height, dtype)
+    rays = ref.undistort_ray(lens, q).reshape(n_w, window + 1, len(grid), 3)
+    delays = ref.window_delays(clip.syncpoints, clip.fps, window, clip.engine_delay,
+                               clip.drift, dtype)
     per = n_w if cell.mix["windows_per_request"] == "all" else int(cell.mix["windows_per_request"])
     reqs = []
     for s in range(0, n_w, per):
@@ -56,7 +61,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cell = harness.find_cell(args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
-        clip = harness.make_clip(cell.config, seed, "cpu", render=False)
+        clip = harness.make_clip(cell.config, seed, "cpu", render=False, root=cell.root)
         numbers = harness.compare(cell, clip, control_requests(cell, clip))
         ok, checks = harness.judge(numbers, cell.limits)
         print(json.dumps({"side": "control", "workload": args.workload, "seed": seed,

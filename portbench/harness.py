@@ -18,6 +18,16 @@ public entry points: `create_sync_problem`, `pipeline.recipe`'s
 (the calls `run_sequential` makes), from the request loops under
 `requests/`. The frames and the gyro log come
 from `portbench.gen`, the answers are judged by `portbench.reference`.
+
+A configuration names its scene by the key `model` of its `scene`
+section, and the scene's files are found like the cell's others, under
+the cell's checkout: the clip's renderer and gyro log are
+`gen/<model>.py`'s `bind(scene)` (an object with the functions of
+`gen/synthclip.py`), its truth is `reference/<model>.py` (the functions
+of `reference/truth.py`). Without the key the scene is the frozen pair
+`gen/synthclip.py` and `reference/truth.py`, called as they always
+were. `make_clip` takes the renderer from `scene_renderer`; `compare`
+and `control.control_requests` take the truth from `scene_truth`.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import gc
 import importlib.util
 import json
 import math
+import re
 import sys
 import time
 from contextlib import contextmanager
@@ -34,9 +45,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-from portbench.gen import synthclip
-from portbench.reference import truth
 
 #: the checkout's root (the parent of portbench/)
 ROOT = Path(__file__).resolve().parent.parent
@@ -70,6 +78,8 @@ class Cell:
     #: setup_s, and of the per-layer metrics, that this cell reports
     end_to_end: list
     per_layer: list
+    #: the checkout the cell's files were found in
+    root: Path = ROOT
 
 
 def _module(path: Path, tag: str):
@@ -115,7 +125,54 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
            if m["name"] != "setup_s" and _applies(m, name)]
     layer = [(m, _reader(root, m["name"])) for m in bench["per_layer"] if _applies(m, name)]
     return Cell(name, w["config"], w["traffic"], int(w["chips"]), config, mix, request, limits,
-                e2e, layer)
+                e2e, layer, root)
+
+
+# ---------------------------------------------------------------------------
+# the scene a configuration names
+
+
+#: the scene modules loaded in this process, by file
+_SCENE_MODULES: dict = {}
+
+
+def _scene_module(config: dict, root: Path, kind: str, default: str):
+    """`portbench/<kind>/<model>.py` of the configuration's `scene.model`
+    under `root`, or `<default>.py` without the key: loaded once a
+    process, and kept in `sys.modules` (a dataclass of the module, such
+    as synthclip's `LensParams`, looks its module up there)."""
+    model = config["scene"].get("model")
+    if model is not None and not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", model):
+        raise ValueError(f"scene.model must be a module name, not {model!r}")
+    path = (root / "portbench" / kind / f"{model or default}.py").resolve()
+    if path not in _SCENE_MODULES:
+        if not path.exists():
+            raise FileNotFoundError(f"no {kind} file at {path}")
+        tag = f"portbench_{kind}_{path.stem}_{len(_SCENE_MODULES)}"
+        spec = importlib.util.spec_from_file_location(tag, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[tag] = mod
+        spec.loader.exec_module(mod)
+        _SCENE_MODULES[path] = mod
+    return _SCENE_MODULES[path]
+
+
+def scene_renderer(config: dict, root: Path = ROOT):
+    """The renderer and gyro log of the configuration's scene
+    (`hero6_lens`, `trajectory_params`, `gyro_log`, `render_frames`, as
+    `gen/synthclip.py` has them): `gen/<model>.py`'s
+    `bind(config["scene"])`, or `gen/synthclip.py` itself without
+    `scene.model`."""
+    mod = _scene_module(config, root, "gen", "synthclip")
+    return mod if config["scene"].get("model") is None else mod.bind(config["scene"])
+
+
+def scene_truth(config: dict, root: Path = ROOT):
+    """The truth of the configuration's scene (`grid_points`,
+    `true_tracks`, `undistort_ray`, `tracked_pixels`, `window_delays`,
+    as `reference/truth.py` has them): `reference/<model>.py`, or
+    `reference/truth.py` without `scene.model`."""
+    return _scene_module(config, root, "reference", "truth")
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +191,10 @@ class Clip:
     fps: float
     width: int
     height: int
-    lens: synthclip.LensParams
-    trajectory: tuple
+    #: the scene's `hero6_lens` of the camera
+    lens: object
+    #: the scene's draw from the seed, as its truth takes it
+    trajectory: object
     gyro_ts: np.ndarray
     gyro_rates: np.ndarray
     #: the delay at video time 0 (true_delay + pad / 2), its drift (s/s)
@@ -166,7 +225,8 @@ def true_delay(config: dict, seed: int) -> float:
     return float(np.random.default_rng([seed, 1]).uniform(lo, hi))
 
 
-def make_clip(config: dict, seed: int, device, render: bool = True) -> Clip:
+def make_clip(config: dict, seed: int, device, render: bool = True,
+              root: Path = ROOT) -> Clip:
     cam, rec = config["camera"], config["recipe"]
     fps, W, H = float(cam["fps"]), int(cam["width"]), int(cam["height"])
     n_frames = int(round(config["clip_s"] * fps))
@@ -175,21 +235,22 @@ def make_clip(config: dict, seed: int, device, render: bool = True) -> Clip:
     # pairs p .. p + window of each window: frames p .. p + window + 1
     per = window + 2
     frame_index = (sps[:, None] + np.arange(per)[None]).reshape(-1)
-    lens = synthclip.hero6_lens(W, H, float(cam["readout_s"]))
+    gen = scene_renderer(config, root)
+    lens = gen.hero6_lens(W, H, float(cam["readout_s"]))
     pad = float(config["gyro_pad_s"])
     # the run's seed draws the scene (motion and texture), the delay, the
     # problems' RANSAC seeds and the order of the sync points
     scene = seed
     delay = true_delay(config, seed)
     drift = float(config["scene"]["drift_s_per_s"])
-    gyro_ts, gyro_rates = synthclip.gyro_log(scene, n_frames / fps, delay, pad,
-                                             float(cam["gyro_rate_hz"]), drift)
+    gyro_ts, gyro_rates = gen.gyro_log(scene, n_frames / fps, delay, pad,
+                                       float(cam["gyro_rate_hz"]), drift)
     frames = None
     if render:
-        frames = synthclip.render_frames(scene, frame_index.tolist(), fps, W, H,
-                                         float(cam["readout_s"]), device, lens)
+        frames = gen.render_frames(scene, frame_index.tolist(), fps, W, H,
+                                   float(cam["readout_s"]), device, lens)
     return Clip(fps=fps, width=W, height=H, lens=lens,
-                trajectory=synthclip.trajectory_params(scene), gyro_ts=gyro_ts,
+                trajectory=gen.trajectory_params(scene), gyro_ts=gyro_ts,
                 gyro_rates=gyro_rates, engine_delay=delay + pad / 2, drift=drift,
                 initial_delay=pad / 2,
                 syncpoints=sps, starts=np.arange(len(sps)) * per, frame_index=frame_index,
@@ -345,26 +406,27 @@ class Driver:
 
 def compare(cell: Cell, clip: Clip, requests: list[Request], dtype=torch.float64) -> dict:
     """Each number compared, from the requests' answers against the
-    plain reference (computed in `dtype`): failed requests; missing
-    tracks (pairs or features the engine did not get) and the median and
-    the 90th percentile of the tracked points' errors, px, over points
-    whose true position stays `edge_px` inside the frame, of the requests
-    whose tracks were kept; the worst PreSync and the worst final delay,
-    ms, of every request."""
+    plain reference (the scene's truth, computed in `dtype`): failed
+    requests; missing tracks (pairs or features the engine did not get)
+    and the median and the 90th percentile of the tracked points'
+    errors, px, over points whose true position stays `edge_px` inside
+    the frame, of the requests whose tracks were kept; the worst PreSync
+    and the worst final delay, ms, of every request."""
     cfg = cell.config
+    ref = scene_truth(cfg, cell.root)
     W, H, step = clip.width, clip.height, int(cfg["tracker"]["grid_step"])
     window = int(cfg["recipe"]["sync_window"])
     edge = float(cell.limits["edge_px"])
-    grid = truth.grid_points(W, H, step)
+    grid = ref.grid_points(W, H, step)
     lens = vars(clip.lens)
     n_pairs = window + 1
     frames_a = (clip.syncpoints[:, None] + np.arange(n_pairs)[None]).reshape(-1)
-    want = truth.true_tracks(clip.trajectory, lens, grid, frames_a, clip.fps, H, dtype)
+    want = ref.true_tracks(clip.trajectory, lens, grid, frames_a, clip.fps, H, dtype)
     want = want.to(torch.float64).reshape(len(clip.syncpoints), n_pairs, len(grid), 2)
     inside = ((want[..., 0] >= edge) & (want[..., 0] <= W - 1 - edge)
               & (want[..., 1] >= edge) & (want[..., 1] <= H - 1 - edge))
-    want_delay = truth.window_delays(clip.syncpoints, clip.fps, window, clip.engine_delay,
-                                     clip.drift, dtype)
+    want_delay = ref.window_delays(clip.syncpoints, clip.fps, window, clip.engine_delay,
+                                   clip.drift, dtype)
     want_delay = want_delay.to(torch.float64)
 
     missing, errs, pre_err, fin_err = 0, [], 0.0, 0.0
@@ -376,7 +438,7 @@ def compare(cell: Cell, clip: Clip, requests: list[Request], dtype=torch.float64
                 present, counts, rays_b = req.tracks[k]
                 missing += n_pairs - present + int(np.sum(np.maximum(len(grid) - counts, 0)))
                 if present == n_pairs and rays_b is not None and rays_b.shape[-1] == len(grid):
-                    got = truth.tracked_pixels(lens, rays_b.permute(1, 2, 0))  # (F, N, 2)
+                    got = ref.tracked_pixels(lens, rays_b.permute(1, 2, 0))  # (F, N, 2)
                     errs.append(torch.linalg.vector_norm(got - want[w], dim=-1)[inside[w]])
             pre_err = max(pre_err, abs(float(req.presync[k]) - float(want_delay[w])) * 1e3)
             fin_err = max(fin_err, abs(float(req.final[k]) - float(want_delay[w])) * 1e3)
@@ -447,7 +509,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
     on_card = _cuda(device)
     import rssync_tpu_torch  # noqa: F401  (pins float32 matmuls to IEEE)
 
-    clip = make_clip(cell.config, seed, device)
+    clip = make_clip(cell.config, seed, device, root=cell.root)
     driver = Driver(cell, clip, seed, device)
     spans = Spans(sync=trace and on_card)
     for k in range(int(cell.mix["warmup_requests"])):
